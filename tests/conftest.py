@@ -44,6 +44,10 @@ def pytest_configure(config):
         "slow: production-parameter test (skipped unless --runslow or "
         "RUN_SLOW=1 in the environment); the fast default subset covers the "
         "same code paths at reduced sizes")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of torus_fhe_tpu_torch on an NVIDIA GPU; "
+        "skips when torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):

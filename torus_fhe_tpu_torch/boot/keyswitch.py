@@ -1,0 +1,75 @@
+"""LWE key switching as a one-hot int8 matrix product.
+
+Port of torus_fhe_tpu/boot/keyswitch.py: the reference's n_in x l digit
+lookups into a table of LWE samples become one (B, K) @ (K, (n_out+1)*4) int8
+product of a {0,1} one-hot matrix with the byte-limb-split table, exact in
+int32 (torch._int_mm; the JAX package leaves this product to XLA, outside any
+Pallas kernel). h = 0 digits select no row, as the reference skips them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..core.params import KeyswitchParams
+from ..core.torus import double_to_torus
+from ..lwe import LweKey, LweSample
+from ..ops import poly
+
+
+@dataclass
+class KeyswitchKey:
+    # (n_in * l * (base-1), cols) int8 limb table; cols is (n_out + 1) * 4
+    # rounded up to a multiple of 8 with zero columns (torch._int_mm on CUDA)
+    mat: torch.Tensor
+    n_in: int = 0
+    n_out: int = 0
+
+
+def pad_table(mat: torch.Tensor) -> torch.Tensor:
+    """Zero columns up to a multiple of 8."""
+    pad = (-mat.shape[1]) % 8
+    return torch.cat([mat, mat.new_zeros((mat.shape[0], pad))], dim=1) if pad else mat
+
+
+def keyswitch_keygen(generator: torch.Generator, alpha: float, params: KeyswitchParams,
+                     out_key: LweKey, in_key: LweKey, device=None) -> KeyswitchKey:
+    """ks[i, j, h] = LWE_out((s_in[i] * h) << (32 - j*log2_base)) with
+    re-centred gaussian noise, split into byte limbs on the host."""
+    n_in, n_out = in_key.size, out_key.size
+    l = params.decomp_length
+    base = 1 << params.log2_base
+    noise = rng.gaussian_float(generator, alpha, (n_in, l, base - 1))
+    noise = noise - noise.mean()
+    a = rng.uniform_torus(generator, (n_in, l, base - 1, n_out)).cpu()
+    s_in = in_key.key.cpu().to(torch.int32)
+    h = torch.arange(1, base, dtype=torch.int32)
+    j = torch.arange(1, l + 1, dtype=torch.int32)
+    msg = (s_in[:, None, None] * h[None, None, :]) << (32 - j[None, :, None] * params.log2_base)
+    b = msg + double_to_torus(noise.cpu()) + torch.sum(a * out_key.key.cpu(), dim=-1,
+                                                       dtype=torch.int32)
+    table = torch.cat([a, b[..., None]], dim=-1).reshape(n_in * l * (base - 1), n_out + 1)
+    mat = poly.limb_split_signed_host(table.numpy(), 32)  # (K, n_out+1, 4)
+    mat = torch.from_numpy(np.ascontiguousarray(mat.reshape(mat.shape[0], -1)))
+    return KeyswitchKey(pad_table(mat).to(device), n_in, n_out)
+
+
+def keyswitch(ks: KeyswitchKey, params: KeyswitchParams, sample: LweSample) -> LweSample:
+    """Batched keyswitch. sample.a: (..., n_in) over the extracted key."""
+    l = params.decomp_length
+    lb = params.log2_base
+    base = 1 << lb
+    lead = tuple(sample.b.shape)
+    dev = sample.a.device
+    aibar = sample.a + (1 << (32 - (1 + lb * l)))  # precision offset, wraps
+    shifts = 32 - torch.arange(1, l + 1, dtype=torch.int32, device=dev) * lb
+    digits = (aibar[..., None] >> shifts) & (base - 1)  # (..., n_in, l)
+    h = torch.arange(1, base, dtype=torch.int32, device=dev)
+    onehot = (digits[..., None] == h).to(torch.int8).reshape(-1, ks.n_in * l * (base - 1))
+    deltas = poly.int8_matmul(onehot, ks.mat)[:, :(ks.n_out + 1) * 4]
+    deltas = poly.limb_combine(deltas.reshape(lead + (ks.n_out + 1, 4)), 32)
+    return LweSample(-deltas[..., :ks.n_out], sample.b - deltas[..., ks.n_out])

@@ -1,0 +1,194 @@
+"""Block-circulant ("F-block") bootstrapping-key layout and the plain
+PyTorch blind rotate over it.
+
+Port of torus_fhe_tpu/ops/fblock.py. The negacyclic product against a fixed
+kernel polynomial k is a matmul by the N x N negacirculant M[u, t] =
+ext[(t - u) mod 2N], ext = [k, -k]. Cut into bs x bs blocks, block (i, j)
+depends only on delta = (j - i) mod D, D = 2N/bs, so per (row poly r, kept
+byte-limb column) the key stores D blocks. The expanded key of one CMux step
+is a (D*R*bs, ncols*bs) int8 matrix with the delta blocks in ``seq_perm``
+order; its bytes are identical to the JAX package's ``build_fblocks``, and the
+CUDA kernel (ops/cuda_rotate.py) reads this same layout.
+
+``blind_rotate_fblock`` is the plain version of that kernel: word-exact, a
+Python loop over the n steps that runs on CPU and CUDA tensors alike.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from . import poly
+
+
+class FBlockGeometry(NamedTuple):
+    n: int        # number of CMux steps (LWE size)
+    N: int        # ring degree
+    bs: int       # block size (min(128, N))
+    nb: int       # N // bs
+    D: int        # 2N // bs distinct deltas
+    C: int        # k+1 polys per RLWE sample
+    R: int        # l * C reduction rows
+    cols: Tuple[Tuple[int, int], ...]  # kernel limb columns: (out_poly, shift)
+    bits: int     # torus width
+
+
+def default_cols(mask_size: int, bits: int, drop_limbs: int) -> Tuple[Tuple[int, int], ...]:
+    """Kernel limb columns: every limb of each mask poly, and the body's limbs
+    from ``drop_limbs`` up (the body is rounded at keygen, so the dropped
+    bytes are exactly zero)."""
+    nl = poly.n_limbs_for(bits)
+    cols = []
+    for j in range(mask_size):
+        cols += [(j, 8 * m) for m in range(nl)]
+    cols += [(mask_size, 8 * m) for m in range(drop_limbs, nl)]
+    return tuple(cols)
+
+
+def fblock_geometry(n: int, N: int, mask_size: int, decomp_length: int,
+                    bits: int, drop_limbs: int, block: int = 128) -> FBlockGeometry:
+    bs = min(block, N)
+    if N % bs:
+        raise ValueError(f"N={N} is not a multiple of the block size {bs}")
+    C = mask_size + 1
+    return FBlockGeometry(
+        n=n, N=N, bs=bs, nb=N // bs, D=2 * N // bs, C=C,
+        R=decomp_length * C,
+        cols=default_cols(mask_size, bits, drop_limbs),
+        bits=bits)
+
+
+def _delta_index(geom: FBlockGeometry) -> np.ndarray:
+    """(D, bs, bs) gather index: idx[delta, p, q] = (bs*delta + q - p) mod 2N."""
+    d = np.arange(geom.D)[:, None, None]
+    p = np.arange(geom.bs)[None, :, None]
+    q = np.arange(geom.bs)[None, None, :]
+    return (geom.bs * d + q - p) % (2 * geom.N)
+
+
+def seq_perm(D: int) -> np.ndarray:
+    """Reverse-cyclic delta ordering: seq[m] = delta-block[(-m) mod D].
+
+    In this order the key rows that output block j needs (delta = (j - i)
+    mod D for digit blocks i = 0..nb-1) sit at consecutive positions
+    m = (i - j) mod D.
+    """
+    return (-np.arange(D)) % D
+
+
+def build_sel(samples: np.ndarray, geom: FBlockGeometry) -> np.ndarray:
+    """The compact F-block form: per CMux step, the extended (negated-wrap)
+    kernel lines split into the kept byte-limb columns.
+
+    samples: (n, l, C, C, N) torus ints (numpy). Returns (n, R, 2N, ncols)
+    int8. The lines are negated in the torus domain BEFORE the limb split:
+    an int8 limb cannot hold +128, so negating limbs would be wrong.
+    """
+    n, l, C, C2, N = samples.shape
+    if (C, N, l * C) != (geom.C, geom.N, geom.R) or C != C2:
+        raise ValueError(f"samples {samples.shape} do not match {geom}")
+    kern = np.ascontiguousarray(samples.reshape(n, geom.R, C, N))
+    with np.errstate(over="ignore"):
+        ext = np.concatenate([kern, -kern], axis=-1)  # wraps mod 2^bits
+    limbs = poly.limb_split_signed_host(ext, geom.bits)  # (n, R, C, 2N, nl)
+    sel = np.stack([limbs[:, :, p, :, s // 8] for p, s in geom.cols], axis=-1)
+    return np.ascontiguousarray(sel)
+
+
+def build_fblocks(samples: np.ndarray, geom: FBlockGeometry, device=None,
+                  chunk: int = 64) -> torch.Tensor:
+    """Build the F-block key from raw TGSW samples on ``device``.
+
+    samples: (n, l, C, C, N) torus ints (host numpy); samples[s, i, j, c] is
+    output poly c of RLWE row (digit level i, poly j) of step s. Returns
+    (n, D*R*bs, ncols*bs) int8: row m*R*bs + r*bs + p, column ci*bs + q holds
+    limb column ci of line r at (bs*seq_perm(D)[m] + q - p) mod 2N. Only the
+    compact lines cross to the device; the expansion runs there in chunks of
+    ``chunk`` steps.
+    """
+    n = samples.shape[0]
+    sel = build_sel(samples, geom)
+    ncols = len(geom.cols)
+    D, R, bs = geom.D, geom.R, geom.bs
+    idx = torch.as_tensor(_delta_index(geom)[seq_perm(D)].reshape(-1), device=device)
+    fb = torch.empty((n, D * R * bs, ncols * bs), dtype=torch.int8, device=device)
+    for s0 in range(0, n, chunk):
+        lines = torch.from_numpy(sel[s0:s0 + chunk]).to(device)  # (cs, R, 2N, ncols)
+        cs = lines.shape[0]
+        g = lines.index_select(2, idx).reshape(cs, R, D, bs, bs, ncols)
+        g = g.permute(0, 2, 1, 3, 5, 4)  # (cs, m, R, p, ncols, q)
+        fb[s0:s0 + cs] = g.reshape(cs, D * R * bs, ncols * bs)
+    return fb
+
+
+def contract_rows_fblock(d8: torch.Tensor, fstep: torch.Tensor,
+                         geom: FBlockGeometry) -> torch.Tensor:
+    """Contract int8 digit rows against one expanded F-block step.
+
+    d8: (B, R, N) int8 rows (row r = digit level x poly); fstep:
+    (D*R*bs, ncols*bs) int8 in seq_perm order. Returns (B, C, N) int32:
+    out[c] = sum_r rows_r (*) K_{r,c}, as one exact int8 matmul.
+    """
+    B = d8.shape[0]
+    nb, D, bs, R, C = geom.nb, geom.D, geom.bs, geom.R, geom.C
+    ncols = len(geom.cols)
+    dev = d8.device
+    # output block j pulls digit block i = (j - delta) mod D for each delta,
+    # valid only when i < nb
+    ji = (np.arange(nb)[:, None] - np.arange(D)[None, :]) % D  # (j, delta)
+    valid = torch.as_tensor(ji < nb, device=dev)
+    ji_safe = torch.as_tensor(np.where(ji < nb, ji, 0), device=dev)
+    g = d8.reshape(B, R, nb, bs)[:, :, ji_safe, :]  # (B, R, j, delta, bs)
+    g = g * valid[None, None, :, :, None].to(torch.int8)
+    dexp = g.movedim(2, 1).reshape(B * nb, R * D * bs)
+    perm = torch.as_tensor(seq_perm(D), device=dev)  # an involution
+    fmat = fstep.reshape(D, R, bs, -1)[perm].movedim(0, 1).reshape(R * D * bs, -1)
+    prod = poly.int8_matmul(dexp, fmat).reshape(B, nb, ncols, bs)
+    comb = torch.zeros((B, nb, C, bs), dtype=torch.int32, device=dev)
+    for ci, (p, shift) in enumerate(geom.cols):
+        comb[:, :, p] += prod[:, :, ci] << shift
+    return comb.movedim(1, 2).reshape(B, C, geom.N)
+
+
+def apply_fblock(t: torch.Tensor, fstep: torch.Tensor, geom: FBlockGeometry,
+                 decomp_length: int, log2_base: int, offset: int) -> torch.Tensor:
+    """delta[c] = sum_r g(t)_r (*) K_{r,c}: gadget-decompose a (B, C, N)
+    input and contract against one expanded F-block step. Digits must fit a
+    byte (log2_base <= 8), as in the kernel."""
+    B, C, N = t.shape
+    digits = poly.decompose(t, decomp_length, log2_base, geom.bits, offset)
+    rows = digits.transpose(-3, -2).reshape(B, geom.R, N)  # rows r = (level, poly)
+    return contract_rows_fblock(rows.to(torch.int8), fstep, geom)
+
+
+def stepvec_acc0(mu: int, barb: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
+    """The gate test vector X^-barb * (0, ..., 0, [mu..mu]) as a (B, C, N)
+    int32 accumulator: mask polys zero, the body the rotated constant."""
+    B = barb.shape[0]
+    tv = torch.full((B, geom.N), int(mu), dtype=torch.int32, device=barb.device)
+    acc = torch.zeros((B, geom.C, geom.N), dtype=torch.int32, device=barb.device)
+    acc[:, geom.C - 1] = poly.mul_by_monomial(tv, -barb.to(torch.int64))
+    return acc
+
+
+def blind_rotate_fblock(acc_a, fb: torch.Tensor, bara: torch.Tensor,
+                        geom: FBlockGeometry, decomp_length: int, log2_base: int,
+                        offset: int, stepvec=None) -> torch.Tensor:
+    """The CMux chain over the F-block key, one Python step at a time.
+
+    acc_a: (B, C, N) int32, or None with ``stepvec=(mu, barb)`` (barb (B,)
+    int32) to start from the gate test vector; fb: (n, D*R*bs, ncols*bs)
+    int8; bara: (B, n) int32. Per step: acc += F-block product of the
+    decomposed (X^bara - 1) * acc. Returns (B, C, N) int32.
+    """
+    if log2_base > 8:
+        raise ValueError("the F-block rotate takes digits of at most 8 bits")
+    acc = stepvec_acc0(stepvec[0], stepvec[1], geom) if acc_a is None else acc_a
+    for s in range(fb.shape[0]):
+        rot = poly.mul_by_monomial(acc, bara[:, s])
+        acc = acc + apply_fblock(rot - acc, fb[s], geom, decomp_length,
+                                 log2_base, offset)
+    return acc
