@@ -2,14 +2,25 @@
 """Smoke test of torus_fhe_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It builds the
-blind-rotate kernel from torus_fhe_tpu_torch/csrc with nvcc, holds it against
-its plain PyTorch version word for word, drives the single-key bootsAND gate
-bootstrap at tfhe_128_tpu_fast (keygen -> encrypt -> gate -> decrypt) and at
-tfhe_128_tpu, and prints informational times. Each phase prints one line;
-the first failure ends the run with a non-zero code. The last three lines
-are the kernels' JSON record, the card's name and power limit as nvidia-smi
-gives them, and {"ok": true, "device": ...}. Without a CUDA device, or
-outside the repository, it fails and prints no result. It imports no JAX.
+two blind-rotate kernels from torus_fhe_tpu_torch/csrc with nvcc (one nvcc
+per source, started together), holds each against its plain PyTorch version
+word for word, and drives two main paths, each with the launch counts set to
+0 just before it and read just after:
+
+- the single-key bootsAND gate bootstrap at tfhe_128_tpu_fast (keygen ->
+  encrypt -> gate -> decrypt) and at tfhe_128_tpu, through blind_rotate.cu;
+- the 3rd-gen multikey gate bootstrap (party keygen -> cloud keygen ->
+  encrypt -> mk_gate_and / mk_gate_nand -> decrypt) at mk_2party_3gen
+  (expanded key, blind_rotate.cu) and at mk_4party_3gen and mk_8party_3gen
+  (compact key, blind_rotate_sel.cu), decrypt-checked, with the boot-noise
+  std held to the committed envelope of measurements/.
+
+The compact kernel is also held against the expanded one on the full
+2-party key. Each phase prints one line; the first failure ends the run with
+a non-zero code. The last three lines are the kernels' JSON record, the
+card's name and power limit as nvidia-smi gives them, and
+{"ok": true, "device": ...}. Without a CUDA device, or outside the
+repository, it fails and prints no result. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +39,17 @@ DEVICE = "cuda"
 SEED = 0
 MAIN_BATCH = 1024
 CHAIN = 4
+# 3gen sets of the multikey path: (registry name, parties, batch)
+MK_SETS = (("mk_2party_3gen", 2, 1024), ("mk_4party_3gen", 4, 256),
+           ("mk_8party_3gen", 8, 256))
+# boot-noise std of the AND output, 300 trials of the JAX package
+# (measurements/noises__mk_{2,4,8}party_3gen_trials-300.dat); the port's must
+# lie within NOISE_BAND times it
+NOISE_ENVELOPE = {"mk_2party_3gen": 0.01427, "mk_4party_3gen": 0.01448,
+                  "mk_8party_3gen": 0.01669}
+NOISE_BAND = (0.75, 1.33)
+# the set whose shapes each kernel's JSON times are taken at
+MAIN_SHAPE = {"blind_rotate": "mk_2party_3gen", "blind_rotate_sel": "mk_8party_3gen"}
 
 
 def log(phase: str, msg: str) -> None:
@@ -81,19 +103,19 @@ def main() -> int:
 
     # 2. build
     t = time.perf_counter()
-    so, report = cuda_rotate.build()
-    cuda_rotate._library()
-    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
-    log("build", f"{so} in {time.perf_counter() - t:.1f} s; ptxas: {' || '.join(regs)}")
+    built = cuda_rotate.build()
+    for name, (so, report) in built.items():
+        cuda_rotate._library(name)
+        regs = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
+        log("build", f"{so}; ptxas: {' || '.join(regs)}")
+    log("build", f"{len(built)} kernel libraries in {time.perf_counter() - t:.1f} s")
 
     def compare(tag, fb, geom, tg, acc, bara, barb, mu):
         """Kernel == plain version, word for word, in both init modes."""
         args = (geom, tg.decomp_length, tg.log2_base, tg.offset)
         for mode, a, sv in (("acc", acc, None), ("stepvec", None, (mu, barb))):
             got = cuda_rotate.blind_rotate_cuda(a, fb, bara, *args, stepvec=sv)
-            want = fblock.blind_rotate_fblock(a, fb, bara, *args, stepvec=sv)
-            torch.cuda.synchronize()
-            err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+            err = max_diff(got, fblock.blind_rotate_fblock(a, fb, bara, *args, stepvec=sv))
             if err:
                 raise AssertionError(f"kernel != plain at {tag} {mode}: max |diff| {err}")
         log("kernel==plain", f"{tag}: B={bara.shape[0]} steps={fb.shape[0]} both modes equal")
@@ -131,13 +153,15 @@ def main() -> int:
     y = torch.from_numpy(rng.integers(0, 2, MAIN_BATCH).astype(bool)).to(dev)
     cx, cy = api.encrypt(gen, sk, x), api.encrypt(gen, sk, y)
     torch.cuda.synchronize()
-    cuda_rotate.blind_rotate_cuda.launches = 0
+    reset_launches(cuda_rotate)
     out, t_and = sync_time(lambda: gates.gate_and(ck, cx, cy))
     chain = [cx]
     for _ in range(CHAIN):
         chain.append(gates.gate_nand(ck, chain[-1], cy))
     torch.cuda.synchronize()
     launches = cuda_rotate.blind_rotate_cuda.launches
+    if cuda_rotate.blind_rotate_sel_cuda.launches:
+        raise AssertionError("the single-key path launched the compact-key kernel")
     if out.a.shape != (MAIN_BATCH, fast.lwe_size) or out.a.dtype != torch.int32:
         raise AssertionError(f"gate output {out.a.dtype} {tuple(out.a.shape)}")
     if not torch.equal(api.decrypt(sk, out), x & y):
@@ -176,8 +200,7 @@ def main() -> int:
     plain_out, plain_s = sync_time(lambda: fblock.blind_rotate_fblock(None, ck.bootstrap_key.fb,
                                                                       bara, *rot_args, stepvec=sv))
     kern_out = cuda_rotate.blind_rotate_cuda(None, ck.bootstrap_key.fb, bara, *rot_args, stepvec=sv)
-    torch.cuda.synchronize()
-    max_err = (kern_out.to(torch.int64) - plain_out.to(torch.int64)).abs().max().item()
+    max_err = max_diff(kern_out, plain_out)
     if max_err:
         raise AssertionError(f"kernel != plain at the main path's shapes: max |diff| {max_err}")
     log("kernel==plain", f"tfhe_128_tpu_fast full key B={MAIN_BATCH} stepvec: equal")
@@ -204,15 +227,178 @@ def main() -> int:
         f"{statistics.median(lat) * 1e3:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    print(json.dumps({"kernels": [{
-        "name": "blind_rotate", "route": "cuda",
-        "source": "torus_fhe_tpu_torch/csrc/blind_rotate.cu",
-        "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]}))
+    del sk, ck, cx, cy, c1x, c1y, chain, out, plain_out, kern_out, acc0, t, bara, barb, sv
+    torch.cuda.empty_cache()
+
+    mkr = multikey(dev, rng)
+
+    print(json.dumps({"kernels": [
+        {"name": "blind_rotate", "route": "cuda",
+         "source": "torus_fhe_tpu_torch/csrc/blind_rotate.cu",
+         "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
+         "launches": launches + mkr["launches"]["blind_rotate"],
+         "max_abs_err": max(max_err, mkr["err"]["blind_rotate"]),
+         "ms": mkr["ms"]["blind_rotate"], "plain_ms": mkr["plain_ms"]["blind_rotate"]},
+        {"name": "blind_rotate_sel", "route": "cuda",
+         "source": "torus_fhe_tpu_torch/csrc/blind_rotate_sel.cu",
+         "replaces": "torus_fhe_tpu/ops/fblock.py:339",
+         "launches": mkr["launches"]["blind_rotate_sel"],
+         "max_abs_err": mkr["err"]["blind_rotate_sel"],
+         "ms": mkr["ms"]["blind_rotate_sel"],
+         "plain_ms": mkr["plain_ms"]["blind_rotate_sel"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def reset_launches(cuda_rotate) -> None:
+    cuda_rotate.blind_rotate_cuda.launches = 0
+    cuda_rotate.blind_rotate_sel_cuda.launches = 0
+
+
+def max_diff(got, want) -> int:
+    torch.cuda.synchronize()
+    return (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+
+
+def multikey(dev, rng) -> dict:
+    """The 3gen multikey phases. Returns the kernels' launch counts over the
+    multikey main paths, their largest differences from the plain versions,
+    and their times at the main shapes (the 2-party set for the expanded
+    kernel, the 8-party set for the compact one)."""
+    import dataclasses
+
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.core.torus import decode_message
+    from torus_fhe_tpu_torch.mk import boot3gen, gates3gen, keys3gen
+    from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+
+    names = ("blind_rotate", "blind_rotate_sel")
+    res = {"launches": dict.fromkeys(names, 0), "err": dict.fromkeys(names, 0),
+           "ms": {}, "plain_ms": {}}
+
+    def rot_args(params, parties):
+        tg = P.TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
+        return (keys3gen.mk_fb_geometry(params, parties), tg.decomp_length, tg.log2_base,
+                tg.offset)
+
+    def check(tag, kernel, got, want):
+        err = max_diff(got, want)
+        res["err"][kernel] = max(res["err"][kernel], err)
+        if err:
+            raise AssertionError(f"{kernel} != reference at {tag}: max |diff| {err}")
+
+    # M1. compact kernel == plain blind_rotate_streamed at small geometries:
+    # 42 steps (the plain version pads them to its 64-step chunk)
+    for N in (64, 256):
+        for l, lb in ((2, 7), (3, 6), (4, 4)):
+            params = P.SchemeParams3Gen(**{**P.test_parameters_3gen(2, 21, N).__dict__,
+                                           "gsw_decomp_length": l, "gsw_log2_base": lb})
+            g = torch.Generator().manual_seed(SEED)
+            sks = [mk.mk_party_keygen(g, params) for _ in range(2)]
+            sel = mk.mk_cloud_keygen(g, sks, params, device=dev, forms=("fbstream",)).bk_fb_sel
+            args = rot_args(params, 2)
+            for B in (1, 37):
+                acc, barb = rand_i32(rng, (B, 2, N)), rand_i32(rng, (B,), -N, N)
+                bara = rand_i32(rng, (B, sel.shape[0]), 0, 2 * N)
+                for mode, a, sv in (("acc", acc, None), ("stepvec", None, (1 << 29, barb))):
+                    check(f"N={N} l={l} B={B} {mode}", "blind_rotate_sel",
+                          cuda_rotate.blind_rotate_sel_cuda(a, sel, bara, *args, stepvec=sv),
+                          fblock.blind_rotate_streamed(a, sel, bara, *args, stepvec=sv))
+            log("compact==plain", f"N={N} l={l} Bg=2^{lb}: {sel.shape[0]} steps, B=1 and 37, "
+                "both modes equal")
+
+    for name, parties, B in MK_SETS:
+        params = P.PARAMETER_REGISTRY[name]()
+        forms = keys3gen.default_forms(params, parties)
+        if forms == ("fblock",):  # the compact form too: both kernels on one key
+            forms = ("fblock", "fbstream")
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator().manual_seed(SEED + parties)
+        t0 = time.perf_counter()
+        sks = [mk.mk_party_keygen(gen, params, device=dev) for _ in range(parties)]
+        ck = mk.mk_cloud_keygen(gen, sks, params, device=dev, forms=forms)
+        torch.cuda.synchronize()
+        t_keygen = time.perf_counter() - t0
+        keys = [sk.lwe for sk in sks]
+        main_ck = dataclasses.replace(ck, bk_fb_sel=None) if ck.bk_fb is not None else ck
+        kernel = "blind_rotate" if main_ck.bk_fb is not None else "blind_rotate_sel"
+        msgs = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+        ys = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+        ct, cy = mk.mk_encrypt(gen, keys, msgs, params), mk.mk_encrypt(gen, keys, ys, params)
+        ct_true = mk.mk_encrypt(gen, keys, torch.ones(B, dtype=torch.bool, device=dev), params)
+        chain_len = CHAIN if parties == 2 else 1
+
+        # the main path: AND(m, 1) = m, then a NAND chain x_{t+1} = NAND(x_t, y)
+        torch.cuda.synchronize()
+        reset_launches(cuda_rotate)
+        out, t_and = sync_time(lambda: gates3gen.mk_gate_and(main_ck, ct, ct_true))
+        chain = [out]
+        for _ in range(chain_len):
+            chain.append(gates3gen.mk_gate_nand(main_ck, chain[-1], cy))
+        torch.cuda.synchronize()
+        counts = {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+                  "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches}
+        peak = torch.cuda.max_memory_allocated()
+        other = names[1 - names.index(kernel)]
+        if counts[kernel] != 1 + chain_len or counts[other]:
+            raise AssertionError(f"{name}: launches {counts}, want {1 + chain_len} of {kernel} "
+                                 f"and none of {other}")
+        res["launches"][kernel] += counts[kernel]
+        if out.a.shape != (B, parties, params.lwe_size) or out.a.dtype != torch.int32:
+            raise AssertionError(f"{name}: gate output {out.a.dtype} {tuple(out.a.shape)}")
+        phase = mk.mk_lwe_phase(out, keys)
+        wrong = int((phase > 0).ne(msgs).sum())
+        want = msgs
+        for step in range(1, chain_len + 1):
+            want = ~(want & ys)
+            wrong += int(mk.mk_decrypt(keys, chain[step]).ne(want).sum())
+        if wrong:
+            raise AssertionError(f"{name}: {wrong} wrong decryptions")
+        ideal = torch.where(msgs, 1 << 29, -(1 << 29)).to(torch.int32)
+        noise = ((phase - ideal).double() / 2.0**32).std().item()
+        env = NOISE_ENVELOPE[name]
+        if not NOISE_BAND[0] <= noise / env <= NOISE_BAND[1]:
+            raise AssertionError(f"{name}: boot-noise std {noise:.5f} is {noise / env:.3f}x the "
+                                 f"envelope {env}, outside {NOISE_BAND}")
+        log(f"mk {name}", f"{'+'.join(forms)} key, B={B}: AND and {chain_len} NAND decrypt "
+            f"correctly (0 wrong of {B * (1 + chain_len)}); {kernel} launched {counts[kernel]}x, "
+            f"{other} 0x; boot-noise std {noise:.5f} ({noise / env:.3f}x envelope {env}); "
+            f"keygen {t_keygen:.2f} s, AND {t_and:.3f} s = {B / t_and:.1f} gates/s; peak memory "
+            f"{peak / 1e9:.2f} GB")
+
+        # the kernels at this set's shapes: the AND's rotate, stepvec mode
+        t = gates3gen.mk_gate_and_wb(main_ck, ct, ct_true)
+        N = params.rlwe_polynomial_degree
+        bara = decode_message(t.a, 2 * N).reshape(B, -1)
+        sv = (boot3gen.hi_word(gates3gen.MU), decode_message(t.b, 2 * N))
+        args = rot_args(params, parties)
+        compact = cuda_rotate.blind_rotate_sel_cuda(None, ck.bk_fb_sel, bara, *args, stepvec=sv)
+        check(f"{name} B={B}", "blind_rotate_sel", compact,
+              fblock.blind_rotate_streamed(None, ck.bk_fb_sel, bara, *args, stepvec=sv))
+        times = {"blind_rotate_sel": (
+            event_ms(lambda: cuda_rotate.blind_rotate_sel_cuda(None, ck.bk_fb_sel, bara, *args,
+                                                               stepvec=sv), 2),
+            event_ms(lambda: fblock.blind_rotate_streamed(None, ck.bk_fb_sel, bara, *args,
+                                                          stepvec=sv), 1))}
+        if ck.bk_fb is not None:
+            check(f"{name} B={B}, expanded vs compact", "blind_rotate",
+                  cuda_rotate.blind_rotate_cuda(None, ck.bk_fb, bara, *args, stepvec=sv), compact)
+            times["blind_rotate"] = (
+                event_ms(lambda: cuda_rotate.blind_rotate_cuda(None, ck.bk_fb, bara, *args,
+                                                               stepvec=sv), 2),
+                event_ms(lambda: fblock.blind_rotate_fblock(None, ck.bk_fb, bara, *args,
+                                                            stepvec=sv), 1))
+        for kname, (ms, plain_ms) in times.items():
+            log(f"rotate time {name}", f"B={B} stepvec, {bara.shape[1]} steps: {kname} "
+                f"{ms:.3f} ms, its plain version {plain_ms:.3f} ms (equal words)")
+            if MAIN_SHAPE[kname] == name:
+                res["ms"][kname], res["plain_ms"][kname] = ms, plain_ms
+        del sks, ck, main_ck, ct, cy, ct_true, out, chain, t, bara, sv, compact
+        torch.cuda.empty_cache()
+    return res
 
 
 if __name__ == "__main__":

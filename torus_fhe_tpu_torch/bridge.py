@@ -3,7 +3,9 @@
 The JAX package and this one compute on the same key when the port takes the
 LWE key bits, the compact TGSW samples and the keyswitch table of a JAX
 ``SecretKey``/``CloudKey`` (``np.asarray`` of each field) and rebuilds its own
-F-block key from the samples. No JAX import is needed here.
+F-block key from the samples. The same holds for the 3gen multikey keys
+(``MKSecretKey``, ``MKCloudKey`` made with ``keep_samples=True``). No JAX
+import is needed here.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ import torch
 from .boot.api import CloudKey, SecretKey
 from .boot.bootstrap import bootstrap_key_from_samples
 from .boot.keyswitch import KeyswitchKey, pad_table
-from .core.params import SchemeParams
+from .core.params import SchemeParams, SchemeParams3Gen
 from .lwe import LweKey, LweSample
+from .mk import keys3gen
+from .mk.samples import MKLweSample
+from .rlwe import RLweKey
 
 
 def secret_key_from_numpy(params: SchemeParams, key_bits: np.ndarray,
@@ -40,3 +45,31 @@ def lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> LweSample:
     """An LWE batch: a (..., n), b (...,), as int32."""
     return LweSample(torch.tensor(np.asarray(a, np.int32), device=device),
                      torch.tensor(np.asarray(b, np.int32), device=device))
+
+
+def mk_secret_keys_from_numpy(params: SchemeParams3Gen, lwe_keys, rlwe_keys,
+                              device=None) -> list:
+    """lwe_keys: per party (n,) LWE key bits (``sk.lwe.key``); rlwe_keys: per
+    party (k, N) ternary ring keys (``sk.rlwe.key``)."""
+    return [keys3gen.MKSecretKey(
+        LweKey(torch.tensor(np.asarray(lk, np.int32), device=device)),
+        RLweKey(torch.tensor(np.asarray(rk, np.int32), device=device), params.rlwe_bits))
+        for lk, rk in zip(lwe_keys, rlwe_keys)]
+
+
+def mk_cloud_key_from_numpy(params: SchemeParams3Gen, samples: np.ndarray,
+                            ks_mat: np.ndarray, parties: int, forms=("fblock",),
+                            device=None) -> keys3gen.MKCloudKey:
+    """samples: (parties*n, l, 2, 2, N) int64 raw TGSW samples
+    (``bk_samples``); ks_mat: (K, parties*(n+1)*4) int8 tables (``ks_mat``).
+    The hi-word rounding and the ``forms`` of the key are rebuilt here, on
+    ``device``."""
+    return keys3gen.cloud_key_from_samples(
+        params, np.array(samples, np.int64), torch.tensor(np.asarray(ks_mat, np.int8)),
+        parties, forms, device, keep_samples=True)
+
+
+def mk_lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> MKLweSample:
+    """A multikey batch: a (..., parties, n), b (...,), as int32."""
+    return MKLweSample(torch.tensor(np.asarray(a, np.int32), device=device),
+                       torch.tensor(np.asarray(b, np.int32), device=device))

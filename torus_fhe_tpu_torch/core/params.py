@@ -1,7 +1,9 @@
-"""Frozen parameter dataclasses for the single-key scheme.
+"""Frozen parameter dataclasses for the single-key and the 3rd-gen
+multikey schemes.
 
-Port of torus_fhe_tpu/core/params.py (the single-key part). Parameters are
-static Python values; equal field by field to the JAX package's.
+Port of torus_fhe_tpu/core/params.py (the single-key and 3gen parts).
+Parameters are static Python values; equal field by field to the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -164,3 +166,118 @@ def test_parameters(n: int = 16, N: int = 64, bits: int = 32) -> SchemeParams:
         3, 7, 2**-25,
         8, 2, 2**-15,
     )
+
+
+@dataclass(frozen=True)
+class SchemeParams3Gen:
+    """3rd-gen (AKÖ) multikey TFHE parameters: a 64-bit ring torus, a
+    32-bit LWE torus, and the largest number of parties the set serves."""
+
+    lwe_size: int
+    lwe_noise_stddev: float
+
+    rlwe_polynomial_degree: int
+    rlwe_mask_size: int
+    rlwe_bits: int
+
+    gsw_decomp_length: int
+    gsw_log2_base: int
+    gsw_noise_stddev: float
+
+    ks_decomp_length: int
+    ks_log2_base: int
+    ks_noise_stddev: float
+
+    max_parties: int
+
+    @property
+    def lwe(self) -> LweParams:
+        return LweParams(self.lwe_size)
+
+    @property
+    def rlwe(self) -> RLweParams:
+        return RLweParams(self.rlwe_polynomial_degree, self.rlwe_mask_size, self.rlwe_bits)
+
+    @property
+    def tgsw(self) -> TGswParams:
+        return TGswParams(self.gsw_decomp_length, self.gsw_log2_base, self.rlwe_bits)
+
+    @property
+    def ks(self) -> KeyswitchParams:
+        return KeyswitchParams(self.ks_decomp_length, self.ks_log2_base)
+
+
+def mktfhe_parameters_2party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(520, 2**-13.52, 1024, 1, 64, 2, 7, 2**-30.70, 3, 3, 2**-13.52, 2)
+
+
+def mktfhe_parameters_3party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(510, 2**-13.26, 1024, 1, 64, 2, 7, 2**-30.70, 5, 2, 2**-13.26, 3)
+
+
+def mktfhe_parameters_4party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(510, 2**-13.26, 1024, 1, 64, 3, 6, 2**-30.70, 5, 2, 2**-13.26, 4)
+
+
+def mktfhe_parameters_8party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(540, 2**-14.04, 1024, 1, 64, 4, 4, 2**-30.70, 5, 2, 2**-14.04, 8)
+
+
+# The sets below have Bg >= 2^18: their blind rotate needs the exact 64-bit
+# streamed scan, which the port does not have yet (keygen raises).
+def mktfhe_parameters_16party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(590, 2**-15.34, 2048, 1, 64, 1, 26, 2**-62.0, 4, 3, 2**-15.34, 16)
+
+
+def mktfhe_parameters_32party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(620, 2**-16.12, 2048, 1, 64, 1, 26, 2**-62.0, 4, 3, 2**-16.12, 32)
+
+
+def mktfhe_parameters_32party_3gen_for_fft() -> SchemeParams3Gen:
+    return SchemeParams3Gen(680, 2**-17.68, 2048, 1, 64, 1, 25, 2**-62.0, 5, 3, 2**-17.68, 32)
+
+
+def mktfhe_parameters_64party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(650, 2**-16.90, 2048, 1, 64, 1, 25, 2**-62.0, 4, 3, 2**-16.90, 64)
+
+
+def mktfhe_parameters_64party_3gen_for_fft() -> SchemeParams3Gen:
+    return SchemeParams3Gen(720, 2**-18.72, 4096, 1, 64, 1, 27, 2**-62.0, 5, 3, 2**-18.72, 64)
+
+
+def mktfhe_parameters_128party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(670, 2**-17.42, 2048, 1, 64, 1, 24, 2**-62.0, 5, 3, 2**-17.42, 128)
+
+
+def mktfhe_parameters_256party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(740, 2**-19.24, 2048, 1, 64, 2, 18, 2**-62.0, 8, 2, 2**-19.24, 256)
+
+
+def mktfhe_parameters_512party_3gen() -> SchemeParams3Gen:
+    return SchemeParams3Gen(730, 2**-18.98, 4096, 1, 64, 1, 27, 2**-62.0, 5, 3, 2**-18.98, 512)
+
+
+def test_parameters_3gen(parties: int = 2, n: int = 16, N: int = 64) -> SchemeParams3Gen:
+    """Tiny insecure 3gen parameter set for unit tests."""
+    return SchemeParams3Gen(n, 2**-13.52, N, 1, 64, 2, 7, 2**-30.70, 3, 3, 2**-13.52, parties)
+
+
+# The JAX package's registry names for the sets this package defines.
+PARAMETER_REGISTRY = {
+    "tfhe_128": tfhe_parameters_128,
+    "tfhe_128_tpu": tfhe_parameters_128_tpu,
+    "tfhe_128_tpu_fast": tfhe_parameters_128_tpu_fast,
+    "tfhe_test_small": test_parameters,  # INSECURE; tests only
+    "mk_2party_3gen": mktfhe_parameters_2party_3gen,
+    "mk_3party_3gen": mktfhe_parameters_3party_3gen,
+    "mk_4party_3gen": mktfhe_parameters_4party_3gen,
+    "mk_8party_3gen": mktfhe_parameters_8party_3gen,
+    "mk_16party_3gen": mktfhe_parameters_16party_3gen,
+    "mk_32party_3gen": mktfhe_parameters_32party_3gen,
+    "mk_32party_3gen_for_fft": mktfhe_parameters_32party_3gen_for_fft,
+    "mk_64party_3gen": mktfhe_parameters_64party_3gen,
+    "mk_64party_3gen_for_fft": mktfhe_parameters_64party_3gen_for_fft,
+    "mk_128party_3gen": mktfhe_parameters_128party_3gen,
+    "mk_256party_3gen": mktfhe_parameters_256party_3gen,
+    "mk_512party_3gen": mktfhe_parameters_512party_3gen,
+}

@@ -35,6 +35,18 @@ def uniform_binary(generator: torch.Generator, shape, dtype=torch.int32, device=
     return raw.to(device)
 
 
+NEGATIVE_BINARY_WEIGHT = 0.113546097609674  # P(-1) = P(+1)
+
+
+def negative_binary(generator: torch.Generator, shape, dtype=torch.int32, device=None):
+    """Ternary key distribution: -1 and +1 with probability
+    NEGATIVE_BINARY_WEIGHT each, else 0."""
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
+    w = NEGATIVE_BINARY_WEIGHT
+    out = (u >= 1.0 - w).to(dtype) - (u < w).to(dtype)
+    return out.to(device)
+
+
 def gaussian_float(generator: torch.Generator, sigma: float, shape, device=None):
     """float32 gaussian noise of stddev ``sigma``."""
     raw = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,

@@ -27,11 +27,16 @@
 //      sum over (i, r, p) of digit[i][r][p] * fb[s][m*R*bs + r*bs + p][ci*bs + q],
 //      m = (i - j) mod D (the key's seq_perm order), exact in int32;
 //   5. acc[poly(ci)][j*bs + q] += sum << shift(ci).
-// The products are exact: |digit| <= 128, |limb| <= 128, K = nb*R*bs <= 6144
-// per output, so every sum stays below 2^27.
+// The sums are exact: each output sums K = nb*R*bs = R*N products of
+// |digit| <= 2^(lb-1) and |limb| <= 128, so R*N*2^(lb-1)*128 < 2^31 bounds it
+// (the wrapper checks this; 2^25 at the 2-party 3gen set).
+// Steps 1-3 and the stepvec init are shared with blind_rotate_sel.cu
+// (cmux_step.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cmux_step.cuh"
 
 #define MAX_COLS 32
 #define THREADS 256
@@ -73,23 +78,8 @@ __global__ void __launch_bounds__(THREADS) blind_rotate_kernel(
 
   // initial accumulator; gates past B (the ragged last tile) run on zeros
   for (int e = tid; e < BT * CN; e += THREADS) {
-    const int gi = e / CN, rem = e - gi * CN;
-    const int gate = gate0 + gi;
-    uint32_t v = 0;
-    if (gate < B) {
-      if (acc_in != nullptr) {
-        v = (uint32_t)acc_in[(size_t)gate * CN + rem];
-      } else {
-        // X^-barb * (0, .., 0, [mu..mu]): the body is a +-mu step function
-        const int c = rem / N, w = rem - c * N;
-        if (c == C - 1) {
-          const int t = barb[gate] & (2 * N - 1);
-          const bool pos = (w < N - (t & (N - 1))) != (t >= N);
-          v = pos ? g.mu : 0u - g.mu;
-        }
-      }
-    }
-    acc[e] = v;
+    const int gi = e / CN, gate = gate0 + gi;
+    acc[e] = gate < B ? init_acc_word(acc_in, barb, gate, e - gi * CN, N, C, g.mu) : 0u;
   }
   __syncthreads();
 
@@ -105,16 +95,11 @@ __global__ void __launch_bounds__(THREADS) blind_rotate_kernel(
       const int c = rem / N, t = rem - c * N;
       const int gate = gate0 + gi;
       const int a = gate < B ? (bara[(size_t)gate * g.n + s] & (2 * N - 1)) : 0;
-      const int a1 = a & (N - 1);
-      const uint32_t* p = acc + gi * CN + c * N;
-      uint32_t r = t >= a1 ? p[t - a1] : 0u - p[t - a1 + N];
-      if (a >= N) r = 0u - r;
-      const uint32_t x = r - p[t] + g.offset;
+      const uint32_t x = cmux_diff(acc + gi * CN + c * N, t, a, N, g.offset);
       const int i = t / bs, q = t - i * bs;
       int8_t* d = dig + (size_t)gi * K + i * Rbs + c * bs + q;
-      for (int lev = 0; lev < g.l; ++lev) {
-        d[lev * C * bs] = (int8_t)(((x >> (32 - (lev + 1) * g.lb)) & lmask) - half);
-      }
+      for (int lev = 0; lev < g.l; ++lev)
+        d[lev * C * bs] = gadget_digit(x, 32 - (lev + 1) * g.lb, lmask, half);
     }
     __syncthreads();
 

@@ -1,0 +1,95 @@
+"""3rd-gen multikey gate bootstrapping.
+
+Port of torus_fhe_tpu/mk/boot3gen.py (the hi-word F-block route). The AKÖ
+external product is packed as a standard TGSW kernel (keys3gen.py), so the
+multikey blind rotate is one CMux chain of parties*n steps, party p's key
+bits at steps [p*n, (p+1)*n), and the accumulator stays one 2-poly RLWE
+sample whatever the party count. Over the hi-word rounded key that chain is
+a 32-bit one: the expanded key (``bk_fb``) runs blind_rotate.cu, the compact
+key (``bk_fb_sel``) blind_rotate_sel.cu, and CPU keys their plain versions
+(ops/cuda_rotate ``rotate`` / ``rotate_streamed``).
+
+The multikey keyswitch applies every party's table to the same extracted
+mask: one one-hot digit matrix against the party-concatenated tables, one
+int8 product, and the b parts summed over parties.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.params import TGswParams
+from ..core.torus import decode_message
+from ..lwe import LweSample
+from ..ops import poly
+from ..ops.cuda_rotate import rotate, rotate_streamed
+from ..rlwe import RLweSample, rlwe_extract_sample
+from .keys3gen import WIDE_DIGITS, MKCloudKey, mk_fb_geometry, mk_fb_supported
+from .samples import MKLweSample
+
+
+def hi_word(mu: int) -> int:
+    """The 32-bit test-vector value of a 64-bit torus mu (a multiple of
+    2^32 at the hi-word sets). A 32-bit-magnitude mu is taken as the hi
+    word already."""
+    mu = int(mu)
+    return mu >> 32 if abs(mu) >= 1 << 31 else mu
+
+
+def mk_bootstrap_wo_keyswitch(ck: MKCloudKey, mu: int, x: MKLweSample) -> LweSample:
+    """Mod-switch the (parties, n) mask to Z_2N and blind-rotate the
+    [mu..mu] test vector through all parties' steps, then extract. Any
+    leading batch shape."""
+    N = ck.params.rlwe_polynomial_degree
+    lead = tuple(x.b.shape)
+    B = x.b.numel()
+    bara = decode_message(x.a, 2 * N).reshape(B, -1)  # party-major steps
+    barb = decode_message(x.b, 2 * N).reshape(B)
+    u = _fast_rotate_extract(ck, mu, bara, barb, B)
+    return LweSample(u.a.reshape(lead + u.a.shape[-1:]), u.b.reshape(lead))
+
+
+def _fast_rotate_extract(ck: MKCloudKey, mu: int, bara: torch.Tensor, barb: torch.Tensor,
+                         B: int) -> LweSample:
+    """32-bit hi-word blind rotate over the F-block key (the expanded form
+    when the key has it, else the compact one), stepvec init, and extract.
+    bara: (B, parties*n) int32; barb: (B,) int32."""
+    params = ck.params
+    if not mk_fb_supported(params):
+        raise NotImplementedError(WIDE_DIGITS)
+    geom = mk_fb_geometry(params, ck.parties)
+    tg32 = TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
+    args = (geom, tg32.decomp_length, tg32.log2_base, tg32.offset)
+    stepvec = (hi_word(mu), barb)
+    if ck.bk_fb is not None:
+        acc = rotate(None, ck.bk_fb, bara, *args, stepvec=stepvec)
+    elif ck.bk_fb_sel is not None:
+        acc = rotate_streamed(None, ck.bk_fb_sel, bara, *args, stepvec=stepvec)
+    else:
+        raise ValueError("the cloud key has neither the fblock nor the fbstream form")
+    return rlwe_extract_sample(RLweSample(acc))
+
+
+def mk_keyswitch(ck: MKCloudKey, u: LweSample) -> MKLweSample:
+    """Per-party keyswitch of the extracted sample u (a (..., N) over the
+    summed extracted keys) with one shared one-hot int8 product."""
+    params = ck.params
+    l, lb = params.ks_decomp_length, params.ks_log2_base
+    base = 1 << lb
+    n, P = params.lwe_size, ck.parties
+    lead = tuple(u.b.shape)
+    dev = u.a.device
+    aibar = u.a + (1 << (32 - (1 + lb * l)))  # precision offset, wraps
+    shifts = 32 - torch.arange(1, l + 1, dtype=torch.int32, device=dev) * lb
+    digits = (aibar[..., None] >> shifts) & (base - 1)  # (..., N, l)
+    h = torch.arange(1, base, dtype=torch.int32, device=dev)
+    onehot = (digits[..., None] == h).to(torch.int8).reshape(-1, ck.ks_mat.shape[0])
+    deltas = poly.int8_matmul(onehot, ck.ks_mat)[:, :P * (n + 1) * 4]
+    deltas = poly.limb_combine(deltas.reshape(lead + (P, n + 1, 4)), 32)  # (..., P, n+1)
+    b = u.b - torch.sum(deltas[..., n], dim=-1, dtype=torch.int32)
+    return MKLweSample(-deltas[..., :n], b)
+
+
+def mk_bootstrap(ck: MKCloudKey, mu: int, x: MKLweSample) -> MKLweSample:
+    """Full multikey bootstrap: rotate-extract, then the multikey keyswitch."""
+    return mk_keyswitch(ck, mk_bootstrap_wo_keyswitch(ck, mu, x))

@@ -12,6 +12,9 @@ CUDA kernel (ops/cuda_rotate.py) reads this same layout.
 
 ``blind_rotate_fblock`` is the plain version of that kernel: word-exact, a
 Python loop over the n steps that runs on CPU and CUDA tensors alike.
+``blind_rotate_streamed`` runs the same chain from the compact lines
+(``build_sel``), expanded chunk by chunk (``expand_fblock_chunk``): the plain
+version of the compact-key kernel.
 """
 
 from __future__ import annotations
@@ -98,29 +101,42 @@ def build_sel(samples: np.ndarray, geom: FBlockGeometry) -> np.ndarray:
     return np.ascontiguousarray(sel)
 
 
+def expand_fblock_chunk(sel_chunk: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
+    """Expand compact lines into F-blocks on their device.
+
+    sel_chunk: (cs, R, 2N, ncols) int8 (``build_sel`` rows). Returns
+    (cs, D*R*bs, ncols*bs) int8: row m*R*bs + r*bs + p, column ci*bs + q
+    holds limb column ci of line r at (bs*seq_perm(D)[m] + q - p) mod 2N,
+    byte-equal to the same steps of ``build_fblocks``.
+    """
+    cs, R, two_n, ncols = sel_chunk.shape
+    if (R, two_n, ncols) != (geom.R, 2 * geom.N, len(geom.cols)):
+        raise ValueError(f"lines {tuple(sel_chunk.shape)} do not match {geom}")
+    D, bs = geom.D, geom.bs
+    idx = torch.as_tensor(_delta_index(geom)[seq_perm(D)].reshape(-1),
+                          device=sel_chunk.device)
+    g = sel_chunk.index_select(2, idx).reshape(cs, R, D, bs, bs, ncols)
+    g = g.permute(0, 2, 1, 3, 5, 4)  # (cs, m, R, p, ncols, q)
+    return g.reshape(cs, D * R * bs, ncols * bs)
+
+
 def build_fblocks(samples: np.ndarray, geom: FBlockGeometry, device=None,
                   chunk: int = 64) -> torch.Tensor:
     """Build the F-block key from raw TGSW samples on ``device``.
 
     samples: (n, l, C, C, N) torus ints (host numpy); samples[s, i, j, c] is
     output poly c of RLWE row (digit level i, poly j) of step s. Returns
-    (n, D*R*bs, ncols*bs) int8: row m*R*bs + r*bs + p, column ci*bs + q holds
-    limb column ci of line r at (bs*seq_perm(D)[m] + q - p) mod 2N. Only the
-    compact lines cross to the device; the expansion runs there in chunks of
-    ``chunk`` steps.
+    (n, D*R*bs, ncols*bs) int8 (layout: ``expand_fblock_chunk``). Only the
+    compact lines cross to the device; the expansion runs there in chunks
+    of ``chunk`` steps.
     """
     n = samples.shape[0]
     sel = build_sel(samples, geom)
-    ncols = len(geom.cols)
     D, R, bs = geom.D, geom.R, geom.bs
-    idx = torch.as_tensor(_delta_index(geom)[seq_perm(D)].reshape(-1), device=device)
-    fb = torch.empty((n, D * R * bs, ncols * bs), dtype=torch.int8, device=device)
+    fb = torch.empty((n, D * R * bs, len(geom.cols) * bs), dtype=torch.int8, device=device)
     for s0 in range(0, n, chunk):
-        lines = torch.from_numpy(sel[s0:s0 + chunk]).to(device)  # (cs, R, 2N, ncols)
-        cs = lines.shape[0]
-        g = lines.index_select(2, idx).reshape(cs, R, D, bs, bs, ncols)
-        g = g.permute(0, 2, 1, 3, 5, 4)  # (cs, m, R, p, ncols, q)
-        fb[s0:s0 + cs] = g.reshape(cs, D * R * bs, ncols * bs)
+        fb[s0:s0 + chunk] = expand_fblock_chunk(
+            torch.from_numpy(sel[s0:s0 + chunk]).to(device), geom)
     return fb
 
 
@@ -191,4 +207,31 @@ def blind_rotate_fblock(acc_a, fb: torch.Tensor, bara: torch.Tensor,
         rot = poly.mul_by_monomial(acc, bara[:, s])
         acc = acc + apply_fblock(rot - acc, fb[s], geom, decomp_length,
                                  log2_base, offset)
+    return acc
+
+
+def blind_rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor,
+                          geom: FBlockGeometry, decomp_length: int, log2_base: int,
+                          offset: int, *, chunk: int = 64, stepvec=None) -> torch.Tensor:
+    """The CMux chain over the COMPACT key, expanding F-blocks chunk by
+    chunk: the plain version of the compact-key kernel
+    (ops/cuda_rotate.blind_rotate_sel_cuda).
+
+    sel: (steps, R, 2N, ncols) int8 (``build_sel``); bara: (B, steps) int32;
+    acc_a: (B, C, N) int32, or None with ``stepvec=(mu, barb)``. The steps
+    are padded to a multiple of ``chunk`` with identity steps (zero lines,
+    bara = 0), and each chunk's expansion goes through
+    ``blind_rotate_fblock``. Returns (B, C, N) int32, word-equal to
+    ``blind_rotate_fblock`` over the expanded key.
+    """
+    steps, B = sel.shape[0], bara.shape[0]
+    spad = (-steps) % chunk
+    if spad:
+        sel = torch.cat([sel, sel.new_zeros((spad,) + tuple(sel.shape[1:]))])
+        bara = torch.cat([bara, bara.new_zeros((B, spad))], dim=1)
+    acc = stepvec_acc0(stepvec[0], stepvec[1], geom) if acc_a is None else acc_a
+    for s0 in range(0, steps + spad, chunk):
+        fb_k = expand_fblock_chunk(sel[s0:s0 + chunk], geom)
+        acc = blind_rotate_fblock(acc, fb_k, bara[:, s0:s0 + chunk], geom,
+                                  decomp_length, log2_base, offset)
     return acc

@@ -19,7 +19,7 @@ from .ops import hostmath, poly
 
 
 class RLweKey(NamedTuple):
-    key: torch.Tensor  # (k, N) int32 in {0, 1}
+    key: torch.Tensor  # (k, N) int32 in {0, 1} (or {-1, 0, 1}: negative keys)
     bits: int  # torus width this key encrypts
 
     @property
@@ -44,10 +44,12 @@ class RLweSample(NamedTuple):
         return RLweSample(-self.a)
 
 
-def rlwe_keygen(generator: torch.Generator, params: RLweParams, device=None) -> RLweKey:
-    """Uniform binary ring key."""
-    k = rng.uniform_binary(generator, (params.mask_size, params.polynomial_degree),
-                           device=device)
+def rlwe_keygen(generator: torch.Generator, params: RLweParams, negative: bool = False,
+                device=None) -> RLweKey:
+    """Uniform binary ring key, or with ``negative`` a ternary one
+    (rng.negative_binary), as the 3gen multikey scheme uses."""
+    sampler = rng.negative_binary if negative else rng.uniform_binary
+    k = sampler(generator, (params.mask_size, params.polynomial_degree), device=device)
     return RLweKey(k, params.bits)
 
 
