@@ -4,23 +4,36 @@
 Run from the root of the repository: ``python3 chip_smoke.py``. It builds the
 two blind-rotate kernels from torus_fhe_tpu_torch/csrc with nvcc (one nvcc
 per source, started together), holds each against its plain PyTorch version
-word for word, and drives two main paths, each with the launch counts set to
-0 just before it and read just after:
+word for word, and drives these main paths, each with the launch counts set
+to 0 just before it and read just after:
 
 - the single-key bootsAND gate bootstrap at tfhe_128_tpu_fast (keygen ->
   encrypt -> gate -> decrypt) and at tfhe_128_tpu, through blind_rotate.cu;
+- the batch-sharded bootsAND (parallel/mesh.run_batch_sharded) over two
+  mesh slots at tfhe_128_tpu_fast, word-equal to the single-device gate;
 - the 3rd-gen multikey gate bootstrap (party keygen -> cloud keygen ->
   encrypt -> mk_gate_and / mk_gate_nand -> decrypt) at mk_2party_3gen
   (expanded key, blind_rotate.cu) and at mk_4party_3gen and mk_8party_3gen
   (compact key, blind_rotate_sel.cu), decrypt-checked, with the boot-noise
-  std held to the committed envelope of measurements/.
+  std held to the committed envelope of measurements/;
+- the party-pipelined multikey bootstrap (parallel/mk_pipeline.py:
+  party-sharded key -> mk_bootstrap_pipelined -> NAND -> decrypt) at
+  mk_8party_3gen (compact key, B=256, 4 microbatches: 32 launches of
+  blind_rotate_sel.cu) and mk_2party_3gen (expanded key, B=1024: 8 launches
+  of blind_rotate.cu). Party p runs on a CUDA stream of cuda:(p % device
+  count), so on one card every party is a stream of cuda:0. The pipelined
+  accumulators must equal the single-call kernel over all steps and the
+  plain version stage by stage, word for word.
 
 The compact kernel is also held against the expanded one on the full
-2-party key. Each phase prints one line; the first failure ends the run with
-a non-zero code. The last three lines are the kernels' JSON record, the
-card's name and power limit as nvidia-smi gives them, and
-{"ok": true, "device": ...}. Without a CUDA device, or outside the
-repository, it fails and prints no result. It imports no JAX.
+2-party key, each kernel against its plain version on one pipeline stage
+in explicit-accumulator mode, the party-sharded keyswitch and threshold
+decryption against their single-device forms, and the tiny-parameter mesh
+dry run (parallel/dryrun.py) runs on 8 slots. Each phase prints one line;
+the first failure ends the run with a non-zero code. The last three lines
+are the kernels' JSON record, the card's name and power limit as nvidia-smi
+gives them, and {"ok": true, "device": ...}. Without a CUDA device, or
+outside the repository, it fails and prints no result. It imports no JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +63,12 @@ NOISE_ENVELOPE = {"mk_2party_3gen": 0.01427, "mk_4party_3gen": 0.01448,
 NOISE_BAND = (0.75, 1.33)
 # the set whose shapes each kernel's JSON times are taken at
 MAIN_SHAPE = {"blind_rotate": "mk_2party_3gen", "blind_rotate_sel": "mk_8party_3gen"}
+# the party-pipelined sets (parallel/mk_pipeline.py): batch, and the key form
+# whose kernel every stage launches
+PIPE_BATCH = {"mk_8party_3gen": 256, "mk_2party_3gen": 1024}
+PIPE_FORM = {"mk_8party_3gen": "compact", "mk_2party_3gen": "expanded"}
+MICROBATCHES = 4
+STAGE_BATCH = 64  # one microbatch at 8 parties: one gate per block
 
 
 def log(phase: str, msg: str) -> None:
@@ -227,29 +246,65 @@ def main() -> int:
         f"{statistics.median(lat) * 1e3:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+    # P4: the batch-sharded bootsAND over two mesh slots == the single-device one
+    from torus_fhe_tpu_torch.parallel import make_mesh
+    from torus_fhe_tpu_torch.parallel import mesh as pmesh
+
+    bmesh = make_mesh(n_batch=2, devices=mesh_devices(2))
+    keys_by_dev = pmesh.replicate_cloud_key(ck, bmesh)
+    xs, ys = pmesh.shard_lwe_batch(cx, bmesh), pmesh.shard_lwe_batch(cy, bmesh)
+    torch.cuda.synchronize()
+    reset_launches(cuda_rotate)
+    sh_out, t_sh = sync_time(lambda: pmesh.run_batch_sharded(gates.gate_and, keys_by_dev, xs, ys,
+                                                             mesh=bmesh))
+    sh_launches = cuda_rotate.blind_rotate_cuda.launches
+    if sh_launches != 2 or cuda_rotate.blind_rotate_sel_cuda.launches:
+        raise AssertionError(f"batch-sharded gate launched blind_rotate {sh_launches}x, not 2")
+    if not (torch.equal(sh_out.a, out.a) and torch.equal(sh_out.b, out.b)):
+        raise AssertionError("batch-sharded gate_and != single-device gate_and")
+    if not torch.equal(api.decrypt(sk, sh_out), x & y):
+        raise AssertionError("batch-sharded gate_and decrypts wrong")
+    sh_s = [sync_time(lambda: pmesh.run_batch_sharded(gates.gate_and, keys_by_dev, xs, ys,
+                                                      mesh=bmesh))[1] for _ in range(3)]
+    log("P4 batch-sharded", f"tfhe_128_tpu_fast B={MAIN_BATCH} over 2 slots on "
+        f"{sorted({str(d) for d in bmesh.batch_devices()})}: == single-device gate_and word "
+        f"for word, decrypts; blind_rotate launched {sh_launches}x; {t_sh:.3f} s cold, "
+        f"{MAIN_BATCH / statistics.mean(sh_s):.1f} gates/s (single device "
+        f"{MAIN_BATCH / statistics.mean(gate_s):.1f})")
+
     del sk, ck, cx, cy, c1x, c1y, chain, out, plain_out, kern_out, acc0, t, bara, barb, sv
+    del keys_by_dev, xs, ys, sh_out
     torch.cuda.empty_cache()
 
     mkr = multikey(dev, rng)
+    pipe = pipelines(rng, mkr.pop("kept"))
+    sharded_ops(rng)
 
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
-         "launches": launches + mkr["launches"]["blind_rotate"],
-         "max_abs_err": max(max_err, mkr["err"]["blind_rotate"]),
+         "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
+         + pipe["launches"]["blind_rotate"],
+         "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
          "ms": mkr["ms"]["blind_rotate"], "plain_ms": mkr["plain_ms"]["blind_rotate"]},
         {"name": "blind_rotate_sel", "route": "cuda",
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate_sel.cu",
-         "replaces": "torus_fhe_tpu/ops/fblock.py:339",
-         "launches": mkr["launches"]["blind_rotate_sel"],
-         "max_abs_err": mkr["err"]["blind_rotate_sel"],
+         "replaces": "torus_fhe_tpu/ops/fblock.py:339, torus_fhe_tpu/parallel/mk_pipeline.py:184",
+         "launches": mkr["launches"]["blind_rotate_sel"] + pipe["launches"]["blind_rotate_sel"],
+         "max_abs_err": max(mkr["err"]["blind_rotate_sel"], pipe["err"]["blind_rotate_sel"]),
          "ms": mkr["ms"]["blind_rotate_sel"],
          "plain_ms": mkr["plain_ms"]["blind_rotate_sel"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mesh_devices(k: int) -> list:
+    """k mesh slots over the cards there are: slot i on cuda:(i % count),
+    so on one card every slot is a stream of cuda:0."""
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(k)]
 
 
 def reset_launches(cuda_rotate) -> None:
@@ -265,8 +320,10 @@ def max_diff(got, want) -> int:
 def multikey(dev, rng) -> dict:
     """The 3gen multikey phases. Returns the kernels' launch counts over the
     multikey main paths, their largest differences from the plain versions,
-    and their times at the main shapes (the 2-party set for the expanded
-    kernel, the 8-party set for the compact one)."""
+    their times at the main shapes (the 2-party set for the expanded kernel,
+    the 8-party set for the compact one), and the keys of the pipelined sets
+    (``kept``: params, party keys, and the cloud key with its raw samples
+    and without its rotate forms)."""
     import dataclasses
 
     from torus_fhe_tpu_torch import mk
@@ -277,7 +334,7 @@ def multikey(dev, rng) -> dict:
 
     names = ("blind_rotate", "blind_rotate_sel")
     res = {"launches": dict.fromkeys(names, 0), "err": dict.fromkeys(names, 0),
-           "ms": {}, "plain_ms": {}}
+           "ms": {}, "plain_ms": {}, "kept": {}}
 
     def rot_args(params, parties):
         tg = P.TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
@@ -319,7 +376,8 @@ def multikey(dev, rng) -> dict:
         gen = torch.Generator().manual_seed(SEED + parties)
         t0 = time.perf_counter()
         sks = [mk.mk_party_keygen(gen, params, device=dev) for _ in range(parties)]
-        ck = mk.mk_cloud_keygen(gen, sks, params, device=dev, forms=forms)
+        ck = mk.mk_cloud_keygen(gen, sks, params, device=dev, forms=forms,
+                                keep_samples=name in PIPE_BATCH)
         torch.cuda.synchronize()
         t_keygen = time.perf_counter() - t0
         keys = [sk.lwe for sk in sks]
@@ -396,9 +454,177 @@ def multikey(dev, rng) -> dict:
                 f"{ms:.3f} ms, its plain version {plain_ms:.3f} ms (equal words)")
             if MAIN_SHAPE[kname] == name:
                 res["ms"][kname], res["plain_ms"][kname] = ms, plain_ms
+        if name in PIPE_BATCH:  # for the pipelined phases: the raw samples and the tables
+            res["kept"][name] = (params, sks, dataclasses.replace(ck, bk_fb=None, bk_fb_sel=None))
         del sks, ck, main_ck, ct, cy, ct_true, out, chain, t, bara, sv, compact
         torch.cuda.empty_cache()
     return res
+
+
+def pipelines(rng, kept: dict) -> dict:
+    """The party-pipelined multikey rotate at full width, per set of
+    PIPE_BATCH: P1, one party's stage, kernel == plain, explicit
+    accumulator; P2 (8 parties, compact key) and P3 (2 parties, expanded
+    key), the pipelined rotate == the single-call kernel over all steps ==
+    the plain version stage by stage, then the main path
+    mk_bootstrap_pipelined -> NAND -> decrypt, with its launches counted,
+    word-equal to the single-device mk_gate_nand. P4's multikey keyswitch:
+    party-sharded == single, at 8 parties. Returns the launch counts of the
+    main paths and the largest differences."""
+    import dataclasses
+
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.core.torus import decode_message
+    from torus_fhe_tpu_torch.lwe import LweSample
+    from torus_fhe_tpu_torch.mk import boot3gen, gates3gen, keys3gen
+    from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+    from torus_fhe_tpu_torch.parallel import make_mesh, mk_pipeline, sharded
+    from torus_fhe_tpu_torch.rlwe import RLweSample, rlwe_extract_sample
+
+    names = ("blind_rotate", "blind_rotate_sel")
+    res = {"launches": dict.fromkeys(names, 0), "err": dict.fromkeys(names, 0)}
+    M = MICROBATCHES
+
+    def check(tag, kernel, got, want):
+        err = max_diff(got, want)
+        res["err"][kernel] = max(res["err"][kernel], err)
+        if err:
+            raise AssertionError(f"{kernel} != reference at {tag}: max |diff| {err}")
+
+    for name, B in PIPE_BATCH.items():
+        params, sks, ck = kept.pop(name)
+        parties, n, N = ck.parties, params.lwe_size, params.rlwe_polynomial_degree
+        expanded = PIPE_FORM[name] == "expanded"
+        kernel, other = names if expanded else names[::-1]
+        wrapper = cuda_rotate.blind_rotate_cuda if expanded else cuda_rotate.blind_rotate_sel_cuda
+        plain = fblock.blind_rotate_fblock if expanded else fblock.blind_rotate_streamed
+        build = mk_pipeline.build_sharded_mk_fb if expanded else mk_pipeline.build_sharded_mk_sel
+        tg = P.TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
+        tga = (tg.decomp_length, tg.log2_base, tg.offset)
+        stage_args = (keys3gen.mk_fb_geometry(params, 1),) + tga
+        full_args = (keys3gen.mk_fb_geometry(params, parties),) + tga
+        mesh = make_mesh(n_batch=1, n_party=parties, devices=mesh_devices(parties))
+        torch.cuda.reset_peak_memory_stats()
+        shards, t_build = sync_time(lambda: build(ck.bk_samples, params, parties, mesh))
+
+        # P1: one party's stage, explicit accumulator, kernel == plain
+        acc = rand_i32(rng, (STAGE_BATCH, 2, N))
+        bara_s = rand_i32(rng, (STAGE_BATCH, n), 0, 2 * N)
+        last = shards[-1]
+        check(f"{name} stage B={STAGE_BATCH} acc", kernel,
+              wrapper(acc, last, bara_s, *stage_args), plain(acc, last, bara_s, *stage_args))
+        stage_ms = event_ms(lambda: wrapper(acc, last, bara_s, *stage_args), 3)
+        stage_plain = event_ms(lambda: plain(acc, last, bara_s, *stage_args), 1)
+        log(f"P1 {name}", f"{kernel} == plain, one {n}-step {PIPE_FORM[name]} stage, "
+            f"B={STAGE_BATCH}, explicit accumulator; kernel {stage_ms:.3f} ms, plain "
+            f"{stage_plain:.3f} ms; sharded key {sum(s.numel() for s in shards) / 1e9:.3f} GB "
+            f"built in {t_build:.2f} s")
+
+        # P2 / P3: a NAND batch; the pipelined rotate against the single call
+        keys = [sk.lwe for sk in sks]
+        x = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(DEVICE)
+        y = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(DEVICE)
+        gen = torch.Generator().manual_seed(SEED + 10 * parties)
+        cx, cy = mk.mk_encrypt(gen, keys, x, params), mk.mk_encrypt(gen, keys, y, params)
+        t = gates3gen.mk_gate_nand_wb(ck, cx, cy)
+        bara = decode_message(t.a, 2 * N).reshape(B, parties, n)
+        barb = decode_message(t.b, 2 * N)
+        mu32 = boot3gen.hi_word(gates3gen.MU)
+        full_key = torch.cat(shards)
+
+        def single():
+            return wrapper(None, full_key, bara.reshape(B, -1), *full_args, stepvec=(mu32, barb))
+
+        def pipelined():
+            return mk_pipeline.mk_blind_rotate_pipelined(shards, bara, barb, mu32, params,
+                                                         parties, mesh, M)
+
+        def plain_stages():
+            """The same chain with the plain version, one call per stage."""
+            Bm, outs = B // M, []
+            for m in range(M):
+                rows = slice(m * Bm, (m + 1) * Bm)
+                a = plain(None, shards[0], bara[rows, 0].contiguous(), *stage_args,
+                          stepvec=(mu32, barb[rows]))
+                for p in range(1, parties):
+                    a = plain(a, shards[p], bara[rows, p].contiguous(), *stage_args)
+                outs.append(a)
+            return torch.cat(outs)
+
+        pipe = pipelined()
+        check(f"{name} B={B} M={M} pipelined vs single call", kernel, pipe, single())
+        plain_out, plain_s = sync_time(plain_stages)
+        check(f"{name} B={B} M={M} pipelined vs plain stages", kernel, pipe, plain_out)
+
+        # the main path: mk_bootstrap_pipelined -> NAND -> decrypt
+        torch.cuda.synchronize()
+        reset_launches(cuda_rotate)
+        out, t_nand = sync_time(lambda: mk_pipeline.mk_bootstrap_pipelined(
+            ck, shards, gates3gen.MU, t, mesh, M))
+        counts = {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+                  "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches}
+        if counts[kernel] != parties * M or counts[other]:
+            raise AssertionError(f"{name} pipelined: launches {counts}, want {parties * M} of "
+                                 f"{kernel} and none of {other}")
+        res["launches"][kernel] += counts[kernel]
+        wrong = int(mk.mk_decrypt(keys, out).ne(~(x & y)).sum())
+        if wrong:
+            raise AssertionError(f"{name} pipelined NAND: {wrong} wrong decryptions")
+        form = {"bk_fb": full_key} if expanded else {"bk_fb_sel": full_key}
+        ref = gates3gen.mk_gate_nand(dataclasses.replace(ck, **form), cx, cy)
+        if not (torch.equal(out.a, ref.a) and torch.equal(out.b, ref.b)):
+            raise AssertionError(f"{name} pipelined NAND != single-device mk_gate_nand")
+        pipe_ms, single_ms = event_ms(pipelined, 2), event_ms(single, 2)
+        log(f"{'P3' if expanded else 'P2'} {name}", f"{PIPE_FORM[name]} key, B={B}, M={M}, "
+            f"{parties} stages on {sorted({str(d) for d in mesh.party_devices()})}: pipelined == "
+            f"single call == plain stages; NAND decrypts (0 wrong of {B}) == mk_gate_nand; "
+            f"{kernel} launched {counts[kernel]}x, {other} 0x; pipelined rotate {pipe_ms:.3f} ms "
+            f"vs single call {single_ms:.3f} ms (ratio {pipe_ms / single_ms:.3f}), plain stages "
+            f"{plain_s * 1e3:.1f} ms; pipelined NAND {t_nand:.3f} s = {B / t_nand:.1f} gates/s; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+        if parties == 8:  # P4: the party-sharded keyswitch of the pipelined extract
+            u = rlwe_extract_sample(RLweSample(pipe))
+            tables = sharded.mk_ks_tables_sharded(ck, mesh)
+            got = sharded.mk_keyswitch_sharded(ck, tables, u, mesh)
+            want = boot3gen.mk_keyswitch(ck, LweSample(u.a, u.b))
+            if not (torch.equal(got.a[..., :parties, :], want.a) and torch.equal(got.b, want.b)):
+                raise AssertionError("mk_keyswitch_sharded != mk_keyswitch at 8 parties")
+            log("P4 keyswitch", f"{name}: mk_keyswitch_sharded over {parties} slots == "
+                f"mk_keyswitch word for word (B={B})")
+        del shards, full_key, pipe, plain_out, out, ref, ck, sks, cx, cy, t, bara, barb
+        torch.cuda.empty_cache()
+    return res
+
+
+def sharded_ops(rng) -> None:
+    """P4: the party-sharded threshold decryption at N=1024, 3 of 5, against
+    the sequential pair, and the tiny-parameter mesh dry run, on 8 slots."""
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.parallel import dryrun, make_mesh, sharded
+    from torus_fhe_tpu_torch.rlwe import rlwe_encrypt, rlwe_keygen
+    from torus_fhe_tpu_torch.threshold import decrypt as tdec
+    from torus_fhe_tpu_torch.threshold import shares as tsh
+
+    rp = P.thfhe_parameters_1024().rlwe
+    g = torch.Generator().manual_seed(SEED + 11)
+    rk = rlwe_keygen(g, rp, device=DEVICE)
+    sh = tsh.share_secret(rk.key, 3, 5, g).subset_shares([1, 2, 4])
+    ct = rlwe_encrypt(g, tdec.encode_bits(0xBEEF, rp.polynomial_degree, n_bits=16,
+                                          device=DEVICE), 1e-3, rk, rp, device=DEVICE)
+    mesh = make_mesh(n_batch=1, n_party=8, devices=mesh_devices(8))
+    got = sharded.threshold_decrypt_sharded(ct.a, sh, [-1, 1, 1], 0.0,
+                                            torch.Generator().manual_seed(SEED + 12), mesh)
+    ref = tdec.final_decrypt(ct, tdec.partial_decrypt(ct, sh, 0.0, g))
+    if not torch.equal(got, ref) or tdec.decode_bits(got, n_bits=16) != 0xBEEF:
+        raise AssertionError("threshold_decrypt_sharded != final_decrypt(partial_decrypt) "
+                             "or does not decode 0xBEEF")
+    log("P4 threshold", "N=1024, 3 of 5, sd=0, 8 slots: sharded == sequential pair, decodes "
+        "0xBEEF")
+    dryrun.dryrun_multichip(mesh_devices(8))
+    log("P4 dryrun", "dryrun_multichip on 8 slots: batch-sharded gate, sharded threshold "
+        "decryption and the 4-party pipelined NAND pass")
 
 
 if __name__ == "__main__":

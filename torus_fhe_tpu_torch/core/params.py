@@ -158,6 +158,17 @@ def tfhe_parameters_128_tpu_fast() -> SchemeParams:
     )
 
 
+def thfhe_parameters_1024() -> SchemeParams:
+    """The threshold set: n = N = 1024, so the LWE key maps 1:1 to a
+    degree-1024 ring key."""
+    return SchemeParams(
+        1024, 2**-15,
+        1024, 1, 32,
+        3, 7, 2**-25,
+        8, 2, 2**-15,
+    )
+
+
 # Small parameter sets for fast unit tests (not secure; same structure).
 def test_parameters(n: int = 16, N: int = 64, bits: int = 32) -> SchemeParams:
     return SchemeParams(
@@ -268,6 +279,7 @@ PARAMETER_REGISTRY = {
     "tfhe_128_tpu": tfhe_parameters_128_tpu,
     "tfhe_128_tpu_fast": tfhe_parameters_128_tpu_fast,
     "tfhe_test_small": test_parameters,  # INSECURE; tests only
+    "thfhe_1024": thfhe_parameters_1024,
     "mk_2party_3gen": mktfhe_parameters_2party_3gen,
     "mk_3party_3gen": mktfhe_parameters_3party_3gen,
     "mk_4party_3gen": mktfhe_parameters_4party_3gen,

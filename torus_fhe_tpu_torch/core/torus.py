@@ -8,6 +8,7 @@ shift of a negative value is arithmetic, as in JAX.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -42,6 +43,26 @@ def double_to_torus(d: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
     if d.dtype != torch.float64:
         d = d.to(torch.float32)
     return torch.trunc(d * 2.0 ** bits).to(torch.int64).to(dtype)
+
+
+def mod_switch_from_torus(phase: torch.Tensor, msize: int) -> torch.Tensor:
+    """Nearest message in Z_msize of a torus phase: round(phase / interv) mod
+    msize with interv = 2^bits / msize, over the unsigned phase (the
+    threshold decode). Returns int32.
+
+    The unsigned add wraps mod 2^bits. torch has no uint32 or uint64
+    arithmetic: a 32-bit phase is taken as its residue in int64, a 64-bit
+    one goes through numpy's uint64 on the host."""
+    bits = torus_bits(phase.dtype)
+    interv = (1 << bits) // msize
+    half = interv // 2
+    if bits < 64:
+        u = (phase.to(torch.int64) + half) & ((1 << bits) - 1)
+        return (u // interv % msize).to(torch.int32)
+    with np.errstate(over="ignore"):
+        u = phase.cpu().numpy().view(np.uint64) + np.uint64(half)
+    out = np.asarray(u // np.uint64(interv) % np.uint64(msize), np.int32)
+    return torch.from_numpy(out).to(phase.device)
 
 
 def t64_to_t32(x: torch.Tensor) -> torch.Tensor:

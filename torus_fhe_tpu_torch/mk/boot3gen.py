@@ -70,21 +70,24 @@ def _fast_rotate_extract(ck: MKCloudKey, mu: int, bara: torch.Tensor, barb: torc
     return rlwe_extract_sample(RLweSample(acc))
 
 
+def ks_onehot(ck: MKCloudKey, a: torch.Tensor) -> torch.Tensor:
+    """The keyswitch's one-hot int8 digit matrix of extracted masks a
+    (..., N): (rows, K), K the table's row count."""
+    l, lb = ck.params.ks_decomp_length, ck.params.ks_log2_base
+    base = 1 << lb
+    aibar = a + (1 << (32 - (1 + lb * l)))  # precision offset, wraps
+    shifts = 32 - torch.arange(1, l + 1, dtype=torch.int32, device=a.device) * lb
+    digits = (aibar[..., None] >> shifts) & (base - 1)  # (..., N, l)
+    h = torch.arange(1, base, dtype=torch.int32, device=a.device)
+    return (digits[..., None] == h).to(torch.int8).reshape(-1, ck.ks_mat.shape[0])
+
+
 def mk_keyswitch(ck: MKCloudKey, u: LweSample) -> MKLweSample:
     """Per-party keyswitch of the extracted sample u (a (..., N) over the
     summed extracted keys) with one shared one-hot int8 product."""
-    params = ck.params
-    l, lb = params.ks_decomp_length, params.ks_log2_base
-    base = 1 << lb
-    n, P = params.lwe_size, ck.parties
+    n, P = ck.params.lwe_size, ck.parties
     lead = tuple(u.b.shape)
-    dev = u.a.device
-    aibar = u.a + (1 << (32 - (1 + lb * l)))  # precision offset, wraps
-    shifts = 32 - torch.arange(1, l + 1, dtype=torch.int32, device=dev) * lb
-    digits = (aibar[..., None] >> shifts) & (base - 1)  # (..., N, l)
-    h = torch.arange(1, base, dtype=torch.int32, device=dev)
-    onehot = (digits[..., None] == h).to(torch.int8).reshape(-1, ck.ks_mat.shape[0])
-    deltas = poly.int8_matmul(onehot, ck.ks_mat)[:, :P * (n + 1) * 4]
+    deltas = poly.int8_matmul(ks_onehot(ck, u.a), ck.ks_mat)[:, :P * (n + 1) * 4]
     deltas = poly.limb_combine(deltas.reshape(lead + (P, n + 1, 4)), 32)  # (..., P, n+1)
     b = u.b - torch.sum(deltas[..., n], dim=-1, dtype=torch.int32)
     return MKLweSample(-deltas[..., :n], b)

@@ -87,6 +87,17 @@ def rlwe_encrypt_zero(generator: torch.Generator, alpha: float, rlwe_key: RLweKe
     return RLweSample(torch.from_numpy(out).to(device))
 
 
+def rlwe_encrypt(generator: torch.Generator, mu, alpha: float, rlwe_key: RLweKey,
+                 params: RLweParams, shape=(), device=None) -> RLweSample:
+    """Symmetric encryption of message polys ``mu`` (..., N): a zero
+    encryption with mu added to the body (the threshold flow's sample)."""
+    zero = rlwe_encrypt_zero(generator, alpha, rlwe_key, params, shape, device=device)
+    shape = tuple(shape)
+    mu = torch.as_tensor(mu, dtype=zero.a.dtype, device=zero.a.device)
+    zero.a[..., -1, :] += mu.expand(shape + (params.polynomial_degree,))  # a fresh tensor
+    return zero
+
+
 def rlwe_noiseless_trivial(mu: torch.Tensor, params: RLweParams, shape=(),
                            device=None) -> RLweSample:
     """(0, ..., 0, mu). ``mu``: (..., N) torus polys."""
