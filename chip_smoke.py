@@ -4,8 +4,10 @@
 Run from the root of the repository: ``python3 chip_smoke.py``. It builds the
 two blind-rotate kernels from torus_fhe_tpu_torch/csrc with nvcc (one nvcc
 per source, started together), holds each against its plain PyTorch version
-word for word, and drives these main paths, each with the launch counts set
-to 0 just before it and read just after:
+word for word (the expanded-key kernel also at batches ragged against each of
+its tile shapes, and as two launches on two streams at once), and drives
+these main paths, each with the launch counts set to 0 just before it and
+read just after:
 
 - the single-key bootsAND gate bootstrap at tfhe_128_tpu_fast (keygen ->
   encrypt -> gate -> decrypt) and at tfhe_128_tpu, through blind_rotate.cu;
@@ -31,8 +33,12 @@ in explicit-accumulator mode, the party-sharded keyswitch and threshold
 decryption against their single-device forms, and the tiny-parameter mesh
 dry run (parallel/dryrun.py) runs on 8 slots. Each phase prints one line;
 the first failure ends the run with a non-zero code. The last three lines
-are the kernels' JSON record, the card's name and power limit as nvidia-smi
-gives them, and {"ok": true, "device": ...}. Without a CUDA device, or
+are the kernels' JSON record (each kernel's time and its plain version's at
+its main shape, beside the bound computed from the shapes; no single PyTorch
+call computes a CMux chain, so library_ms is null, and a yardstick line,
+labelled partial, gives n times the one torch._int_mm of a plain step), the
+card's name and power limit as nvidia-smi gives them, and
+{"ok": true, "device": ...}. Without a CUDA device, or
 outside the repository, it fails and prints no result. It imports no JAX.
 """
 
@@ -62,7 +68,8 @@ NOISE_ENVELOPE = {"mk_2party_3gen": 0.01427, "mk_4party_3gen": 0.01448,
                   "mk_8party_3gen": 0.01669}
 NOISE_BAND = (0.75, 1.33)
 # the set whose shapes each kernel's JSON times are taken at
-MAIN_SHAPE = {"blind_rotate": "mk_2party_3gen", "blind_rotate_sel": "mk_8party_3gen"}
+MAIN_SHAPE = {"blind_rotate": "tfhe_128_tpu_fast", "blind_rotate_sel": "mk_8party_3gen"}
+RAGGED = (1, 37, 130)  # batches ragged against the 16-, 64- and 128-gate tiles
 # the party-pipelined sets (parallel/mk_pipeline.py): batch, and the key form
 # whose kernel every stage launches
 PIPE_BATCH = {"mk_8party_3gen": 256, "mk_2party_3gen": 1024}
@@ -144,11 +151,12 @@ def main() -> int:
     base = P.test_parameters(n=12, N=64)
     twin = P.SchemeParams(**{**base.__dict__, "bs_decomp_length": 2, "bs_log2_base": 8,
                              "rlwe_mask_size": 2, "bk_drop_limbs": 1})
+    odd = P.SchemeParams(**{**twin.__dict__, "bs_decomp_length": 1})  # R*bs = 192: the 64-byte-stage tile
     for tag, params in (("test N=64 k=1", base), ("test N=256 k=1", P.test_parameters(n=12, N=256)),
-                        ("k=2 l=2 Bg=2^8 drop-1 N=64", twin)):
+                        ("k=2 l=2 Bg=2^8 drop-1 N=64", twin), ("k=2 l=1 Bg=2^8 drop-1 N=64", odd)):
         _, ck = api.make_key_pair(torch.Generator().manual_seed(SEED), params, device=dev)
         N, C = params.rlwe_polynomial_degree, params.rlwe_mask_size + 1
-        for B in (1, 37):
+        for B in RAGGED:
             compare(tag, ck.bootstrap_key.fb, bootstrap.bk_geometry(params), params.tgsw,
                     rand_i32(rng, (B, C, N)), rand_i32(rng, (B, params.lwe_size), 0, 2 * N),
                     rand_i32(rng, (B,), -N, N), 1 << 29)
@@ -163,9 +171,10 @@ def main() -> int:
     N, C = fast.rlwe_polynomial_degree, fast.rlwe_mask_size + 1
     log("keygen", f"tfhe_128_tpu_fast: {t_keygen:.2f} s (F-block build {t_fb:.2f} s), "
         f"fb {tuple(ck.bootstrap_key.fb.shape)} = {ck.bootstrap_key.fb.numel() / 1e9:.2f} GB")
-    compare("tfhe_128_tpu_fast key, first 16 steps", ck.bootstrap_key.fb[:16], geom, fast.tgsw,
-            rand_i32(rng, (64, C, N)), rand_i32(rng, (64, 16), 0, 2 * N),
-            rand_i32(rng, (64,), -N, N), gates.EIGHTH[1])
+    for B in RAGGED + (64,):
+        compare("tfhe_128_tpu_fast key, first 16 steps", ck.bootstrap_key.fb[:16], geom,
+                fast.tgsw, rand_i32(rng, (B, C, N)), rand_i32(rng, (B, 16), 0, 2 * N),
+                rand_i32(rng, (B,), -N, N), gates.EIGHTH[1])
 
     # 4. main path: encrypt, bootsAND, a NAND chain, decrypt
     x = torch.from_numpy(rng.integers(0, 2, MAIN_BATCH).astype(bool)).to(dev)
@@ -229,13 +238,51 @@ def main() -> int:
     times = {}
     for mode, (a, s) in modes.items():
         plain = event_ms(lambda: fblock.blind_rotate_fblock(a, ck.bootstrap_key.fb, bara,
-                                                           *rot_args, stepvec=s), 1)
+                                                           *rot_args, stepvec=s), 3)
         kern = event_ms(lambda: cuda_rotate.blind_rotate_cuda(a, ck.bootstrap_key.fb, bara,
                                                              *rot_args, stepvec=s), 3)
         times[mode] = (kern, plain)
         log("rotate time", f"tfhe_128_tpu_fast B={MAIN_BATCH} {mode}: kernel {kern:.3f} ms, "
             f"plain {plain:.3f} ms (plain cold {plain_s:.3f} s)")
     ms, plain_ms = times["stepvec"]
+    bound_ms, bound_by = cuda_rotate.rotate_bound_ms(MAIN_BATCH, geom, ck.bootstrap_key.fb.numel())
+    plan = cuda_rotate.rotate_plan(MAIN_BATCH, geom, fast.bs_decomp_length,
+                                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    log("rotate plan", f"B={MAIN_BATCH}: tile {plan.tile.bm} gates x {plan.tile.wq} coefficients, "
+        f"{plan.tiles} tiles a step on a grid of {cuda_rotate.blind_rotate_cuda.grid} blocks "
+        f"({plan.waves:.2f} rounds, {plan.fill:.3f} busy), {plan.smem_bytes} B shared memory a "
+        f"block, {plan.scratch_bytes} B of digit scratch; bound {bound_ms:.3f} ms ({bound_by})")
+
+    # two launches on two streams at once, half the batch each: the grid
+    # barrier of one cannot wait on the other's, and the words are the same
+    half = MAIN_BATCH // 2
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    halves = []
+    for i, stream in enumerate(streams):
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        rows = slice(i * half, (i + 1) * half)
+        with torch.cuda.stream(stream):
+            halves.append(cuda_rotate.blind_rotate_cuda(
+                None, ck.bootstrap_key.fb, bara[rows], *rot_args, stepvec=(sv[0], barb[rows])))
+    torch.cuda.synchronize()
+    if not torch.equal(torch.cat(halves), kern_out):
+        raise AssertionError("two launches on two streams != the one-stream words")
+    log("two streams", f"2 x B={half} on two streams at once finish and equal the B={MAIN_BATCH} "
+        "launch word for word")
+
+    # yardstick, partial: the one torch._int_mm a plain step calls, n times.
+    # It is the contraction alone (no rotate, digits or shift-add), over the
+    # plain version's zero-padded K = R*D*bs; the port's path never calls it.
+    gy = torch.Generator(device=dev).manual_seed(SEED)
+    dexp = torch.randint(-128, 128, (MAIN_BATCH * geom.nb, geom.R * geom.D * geom.bs),
+                         generator=gy, dtype=torch.int8, device=dev)
+    fmat_t = torch.randint(-128, 128, (len(geom.cols) * geom.bs, geom.R * geom.D * geom.bs),
+                           generator=gy, dtype=torch.int8, device=dev)
+    mm_ms = event_ms(lambda: torch._int_mm(dexp, fmat_t.t()), 20)
+    log("yardstick (partial)", f"{geom.n} x one torch._int_mm {tuple(dexp.shape)} @ "
+        f"{tuple(fmat_t.t().shape)} = {geom.n} x {mm_ms:.4f} ms = {geom.n * mm_ms:.3f} ms "
+        f"(contraction only; kernel {ms:.3f} ms, bound {bound_ms:.3f} ms)")
+    del dexp, fmat_t, halves
     gate_s = [sync_time(lambda: gates.gate_and(ck, cx, cy))[1] for _ in range(3)]
     c1x, c1y = api.encrypt(gen, sk, x[:1]), api.encrypt(gen, sk, y[:1])
     lat = [sync_time(lambda: gates.gate_and(ck, c1x, c1y))[1] for _ in range(11)]
@@ -287,14 +334,17 @@ def main() -> int:
          "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
          + pipe["launches"]["blind_rotate"],
          "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
-         "ms": mkr["ms"]["blind_rotate"], "plain_ms": mkr["plain_ms"]["blind_rotate"]},
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": None},
         {"name": "blind_rotate_sel", "route": "cuda",
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate_sel.cu",
          "replaces": "torus_fhe_tpu/ops/fblock.py:339, torus_fhe_tpu/parallel/mk_pipeline.py:184",
          "launches": mkr["launches"]["blind_rotate_sel"] + pipe["launches"]["blind_rotate_sel"],
          "max_abs_err": max(mkr["err"]["blind_rotate_sel"], pipe["err"]["blind_rotate_sel"]),
          "ms": mkr["ms"]["blind_rotate_sel"],
-         "plain_ms": mkr["plain_ms"]["blind_rotate_sel"]}]}))
+         "plain_ms": mkr["plain_ms"]["blind_rotate_sel"],
+         "bound_ms": mkr["bound_ms"]["blind_rotate_sel"][0],
+         "bound_by": mkr["bound_ms"]["blind_rotate_sel"][1], "library_ms": None}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -320,8 +370,8 @@ def max_diff(got, want) -> int:
 def multikey(dev, rng) -> dict:
     """The 3gen multikey phases. Returns the kernels' launch counts over the
     multikey main paths, their largest differences from the plain versions,
-    their times at the main shapes (the 2-party set for the expanded kernel,
-    the 8-party set for the compact one), and the keys of the pipelined sets
+    the compact kernel's times and bound at its main shape (the 8-party set),
+    and the keys of the pipelined sets
     (``kept``: params, party keys, and the cloud key with its raw samples
     and without its rotate forms)."""
     import dataclasses
@@ -334,7 +384,7 @@ def multikey(dev, rng) -> dict:
 
     names = ("blind_rotate", "blind_rotate_sel")
     res = {"launches": dict.fromkeys(names, 0), "err": dict.fromkeys(names, 0),
-           "ms": {}, "plain_ms": {}, "kept": {}}
+           "ms": {}, "plain_ms": {}, "bound_ms": {}, "kept": {}}
 
     def rot_args(params, parties):
         tg = P.TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
@@ -454,6 +504,7 @@ def multikey(dev, rng) -> dict:
                 f"{ms:.3f} ms, its plain version {plain_ms:.3f} ms (equal words)")
             if MAIN_SHAPE[kname] == name:
                 res["ms"][kname], res["plain_ms"][kname] = ms, plain_ms
+                res["bound_ms"][kname] = cuda_rotate.rotate_bound_ms(B, args[0], ck.bk_fb_sel.numel())
         if name in PIPE_BATCH:  # for the pipelined phases: the raw samples and the tables
             res["kept"][name] = (params, sks, dataclasses.replace(ck, bk_fb=None, bk_fb_sel=None))
         del sks, ck, main_ck, ct, cy, ct_true, out, chain, t, bara, sv, compact

@@ -56,10 +56,11 @@ def _jax_world(name):
         cts = [japi.encrypt(jax.random.PRNGKey(30 + i), sk, b) for i, b in enumerate(bits)]
         tp = tparams.SchemeParams(**params.__dict__)
         bk, ks = ck.bootstrap_key, ck.keyswitch_key
-        tsk = bridge.secret_key_from_numpy(tp, np.asarray(sk.key.key))
+        tsk = bridge.secret_key_from_numpy(tp, np.asarray(sk.key.key), device="cpu")
         tck = bridge.cloud_key_from_numpy(tp, np.asarray(bk.samples), np.asarray(ks.mat),
-                                          ks.n_in, ks.n_out)
-        tcts = [bridge.lwe_from_numpy(np.asarray(c.a), np.asarray(c.b)) for c in cts]
+                                          ks.n_in, ks.n_out, device="cpu")
+        tcts = [bridge.lwe_from_numpy(np.asarray(c.a), np.asarray(c.b), device="cpu")
+                for c in cts]
         _CACHE[name] = (params, sk, ck, cts, [np.asarray(b) for b in bits], tsk, tck, tcts)
     return _CACHE[name]
 
@@ -98,7 +99,7 @@ def test_keyswitch_word_equal_to_jax():
     want = jks.keyswitch(ck.keyswitch_key, params.ks,
                          japi.LweSample(jnp.asarray(a), jnp.asarray(b)))
     got = tks.keyswitch(tck.keyswitch_key, tparams.SchemeParams(**params.__dict__).ks,
-                        bridge.lwe_from_numpy(a, b))
+                        bridge.lwe_from_numpy(a, b, device="cpu"))
     _assert_same(got, want)
     assert tck.keyswitch_key.mat.shape[1] % 8 == 0  # padded for torch._int_mm
 
@@ -126,7 +127,7 @@ def test_blind_rotate_and_extract_word_equal_to_jax():
 def port_keys():
     params = tparams.test_parameters(n=32, N=64)
     g = torch.Generator().manual_seed(123)
-    sk, ck = api.make_key_pair(g, params)
+    sk, ck = api.make_key_pair(g, params, device="cpu")
     return sk, ck, g
 
 
@@ -161,4 +162,4 @@ def test_keygen_refuses_quantized_mask():
     params = tparams.SchemeParams(**{**tparams.test_parameters().__dict__,
                                      "bk_mask_quantum_bits": 16})
     with pytest.raises(ValueError):
-        api.make_key_pair(torch.Generator().manual_seed(0), params)
+        api.make_key_pair(torch.Generator().manual_seed(0), params, device="cpu")

@@ -54,11 +54,13 @@ def _jax_world(parties):
                for i, b in enumerate(bits)]
         tp = tparams.SchemeParams3Gen(**params.__dict__)
         tsks = bridge.mk_secret_keys_from_numpy(tp, [np.asarray(sk.lwe.key) for sk in sks],
-                                                [np.asarray(sk.rlwe.key) for sk in sks])
+                                                [np.asarray(sk.rlwe.key) for sk in sks],
+                                                device="cpu")
         tck = bridge.mk_cloud_key_from_numpy(tp, np.asarray(ck.bk_samples),
                                              np.asarray(ck.ks_mat), parties,
-                                             forms=("fblock", "fbstream"))
-        tcts = [bridge.mk_lwe_from_numpy(np.asarray(c.a), np.asarray(c.b)) for c in cts]
+                                             forms=("fblock", "fbstream"), device="cpu")
+        tcts = [bridge.mk_lwe_from_numpy(np.asarray(c.a), np.asarray(c.b), device="cpu")
+                for c in cts]
         _WORLDS[parties] = (params, sks, ck, cts, bits, tp, tsks, tck, tcts)
     return _WORLDS[parties]
 
@@ -229,8 +231,8 @@ PARAMS = tparams.test_parameters_3gen(parties=2, n=16, N=64)
 @pytest.fixture(scope="module")
 def port_world():
     g = torch.Generator().manual_seed(77)
-    sks = [mk.mk_party_keygen(g, PARAMS) for _ in range(2)]
-    ck = mk.mk_cloud_keygen(g, sks, PARAMS, forms=("fblock", "fbstream"))
+    sks = [mk.mk_party_keygen(g, PARAMS, device="cpu") for _ in range(2)]
+    ck = mk.mk_cloud_keygen(g, sks, PARAMS, device="cpu", forms=("fblock", "fbstream"))
     return sks, ck, g
 
 
@@ -272,8 +274,8 @@ def test_port_keys_gate_truth_tables(port_world, form):
 def test_three_party_port_keys():
     params = tparams.test_parameters_3gen(parties=3, n=16, N=64)
     g = torch.Generator().manual_seed(5)
-    sks = [mk.mk_party_keygen(g, params) for _ in range(3)]
-    ck = mk.mk_cloud_keygen(g, sks, params, forms=("fbstream",))
+    sks = [mk.mk_party_keygen(g, params, device="cpu") for _ in range(3)]
+    ck = mk.mk_cloud_keygen(g, sks, params, device="cpu", forms=("fbstream",))
     assert ck.bk_fb is None and ck.bk_fb_sel.shape == (48, 4, 128, 8)
     keys = [sk.lwe for sk in sks]
     xs, ys = torch.tensor([False, False, True, True]), torch.tensor([False, True, False, True])
@@ -293,7 +295,7 @@ def test_int_encrypt_decrypt(port_world):
 def test_common_public_key_is_a_sum_encryption():
     """b - (sum_p s_p) (*) a must be small noise."""
     g = torch.Generator().manual_seed(3)
-    sks = [mk.mk_party_keygen(g, PARAMS) for _ in range(3)]
+    sks = [mk.mk_party_keygen(g, PARAMS, device="cpu") for _ in range(3)]
     crp = mk.gen_crp(g, PARAMS)
     assert crp.a.dtype == torch.int64 and torch.equal(crp.a[0], crp.a[1])
     common = mk.common_public_key([mk.public_keygen(g, sk.rlwe, crp, PARAMS) for sk in sks])
@@ -311,7 +313,7 @@ def test_negative_binary_frequencies():
     sd = (w * (1 - w) / x.numel()) ** 0.5
     for v in (-1, 1):
         assert abs((x == v).double().mean().item() - w) < 5 * sd
-    key = mk.mk_party_keygen(g, tparams.mktfhe_parameters_2party_3gen()).rlwe.key
+    key = mk.mk_party_keygen(g, tparams.mktfhe_parameters_2party_3gen(), device="cpu").rlwe.key
     assert key.shape == (1, 1024) and key.min() == -1 and key.max() == 1
 
 
@@ -343,13 +345,15 @@ def test_default_forms_and_unported_routes():
     g = torch.Generator().manual_seed(0)
     tiny_wide = tparams.SchemeParams3Gen(**{**PARAMS.__dict__, "gsw_decomp_length": 1,
                                             "gsw_log2_base": 26})
-    sks = [mk.mk_party_keygen(g, tiny_wide) for _ in range(2)]
+    sks = [mk.mk_party_keygen(g, tiny_wide, device="cpu") for _ in range(2)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mk.mk_cloud_keygen(g, sks, tiny_wide, forms=keys3gen.default_forms(tiny_wide, 2))
+        mk.mk_cloud_keygen(g, sks, tiny_wide, device="cpu",
+                           forms=keys3gen.default_forms(tiny_wide, 2))
     fake = keys3gen.MKCloudKey(torch.zeros((8, 8), dtype=torch.int8), 2, tiny_wide)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         boot3gen._fast_rotate_extract(fake, MU64, torch.zeros((1, 32), dtype=torch.int32),
                                       torch.zeros(1, dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="conv"):
-        mk.mk_cloud_keygen(g, [mk.mk_party_keygen(g, PARAMS)], PARAMS, forms=("conv",))
+        mk.mk_cloud_keygen(g, [mk.mk_party_keygen(g, PARAMS, device="cpu")], PARAMS,
+                           device="cpu", forms=("conv",))
     assert boot3gen.hi_word(MU64) == MU32 and boot3gen.hi_word(MU32) == MU32

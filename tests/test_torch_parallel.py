@@ -50,7 +50,7 @@ def test_mk_keyswitch_sharded_equals_jax(parties, slots):
 
     tp = tparams.SchemeParams3Gen(**params.__dict__)
     tck = bridge.mk_cloud_key_from_numpy(tp, np.asarray(ck.bk_samples), np.asarray(ck.ks_mat),
-                                         parties, forms=("fbstream",))
+                                         parties, forms=("fbstream",), device="cpu")
     tm = tmesh.make_mesh(n_batch=1, n_party=slots, devices=[CPU] * slots)
     tables = sharded.mk_ks_tables_sharded(tck, tm)
     assert len(tables) == slots and all(t.shape[1] % 8 == 0 for t in tables)
@@ -78,11 +78,13 @@ def single_key_world():
     cy = japi.encrypt(jax.random.PRNGKey(2), sk, jnp.asarray(ys))
     want = jgates.gate_and(ck, cx, cy)
     tp = tparams.SchemeParams(**params.__dict__)
-    tsk = bridge.secret_key_from_numpy(tp, np.asarray(sk.key.key))
+    tsk = bridge.secret_key_from_numpy(tp, np.asarray(sk.key.key), device="cpu")
     tck = bridge.cloud_key_from_numpy(tp, np.asarray(ck.bootstrap_key.samples),
                                       np.asarray(ck.keyswitch_key.mat),
-                                      ck.keyswitch_key.n_in, ck.keyswitch_key.n_out)
-    tcx, tcy = (bridge.lwe_from_numpy(np.asarray(c.a), np.asarray(c.b)) for c in (cx, cy))
+                                      ck.keyswitch_key.n_in, ck.keyswitch_key.n_out,
+                                      device="cpu")
+    tcx, tcy = (bridge.lwe_from_numpy(np.asarray(c.a), np.asarray(c.b), device="cpu")
+                for c in (cx, cy))
     return xs, ys, want, tsk, tck, tcx, tcy
 
 

@@ -68,7 +68,7 @@ def _world(parties):
         tp = tparams.SchemeParams3Gen(**params.__dict__)
         samples = np.asarray(ck.bk_samples)
         tck = bridge.mk_cloud_key_from_numpy(tp, samples, np.asarray(ck.ks_mat), parties,
-                                             forms=("fblock", "fbstream"))
+                                             forms=("fblock", "fbstream"), device="cpu")
         tm = tmesh.make_mesh(n_batch=1, n_party=parties, devices=[CPU] * parties)
         tkeys = {"expanded": tpipe.build_sharded_mk_fb(samples, tp, parties, tm),
                  "compact": tpipe.build_sharded_mk_sel(samples, tp, parties, tm)}
@@ -120,9 +120,10 @@ def test_pipelined_bootstrap_equals_jax(needs_jax, parties):
     t = jmk.mk_lwe_noiseless_trivial(jencode(1, 8), params.lwe, parties, xs.shape) - cx - cy
     want = jpipe.mk_bootstrap_pipelined(ck, jkeys["compact"], jencode(1, 8, jnp.int64), t, jm,
                                         microbatches=4)
-    tt = bridge.mk_lwe_from_numpy(np.asarray(t.a), np.asarray(t.b))
+    tt = bridge.mk_lwe_from_numpy(np.asarray(t.a), np.asarray(t.b), device="cpu")
     tsks = bridge.mk_secret_keys_from_numpy(tp, [np.asarray(k.key) for k in lwe_keys],
-                                            [np.asarray(sk.rlwe.key) for sk in sks])
+                                            [np.asarray(sk.rlwe.key) for sk in sks],
+                                            device="cpu")
     for form, mu in (("compact", MU64), ("expanded", torch.tensor(MU64))):
         got = tpipe.mk_bootstrap_pipelined(tck, tkeys[form], mu, tt, tm, microbatches=4)
         np.testing.assert_array_equal(got.a.numpy(), np.asarray(want.a))
@@ -137,8 +138,8 @@ def test_port_keys_pipelined_nand_truth_table():
     parties = 4
     tp = tparams.test_parameters_3gen(parties=parties, n=N_LWE, N=N_RING)
     g = torch.Generator().manual_seed(31)
-    sks = [mk.mk_party_keygen(g, tp) for _ in range(parties)]
-    ck = mk.mk_cloud_keygen(g, sks, tp, forms=("fbstream",), keep_samples=True)
+    sks = [mk.mk_party_keygen(g, tp, device="cpu") for _ in range(parties)]
+    ck = mk.mk_cloud_keygen(g, sks, tp, device="cpu", forms=("fbstream",), keep_samples=True)
     tm = tmesh.make_mesh(n_batch=1, n_party=parties, devices=[CPU] * parties)
     sel = tpipe.build_sharded_mk_sel(ck.bk_samples, tp, parties, tm)
     keys = [sk.lwe for sk in sks]
@@ -187,7 +188,7 @@ def test_pipelined_kernels_equal_single_call(form):
     dev = torch.device("cuda", 0)
     tp = tparams.test_parameters_3gen(parties=parties, n=N_LWE, N=N_RING)
     g = torch.Generator().manual_seed(5)
-    sks = [mk.mk_party_keygen(g, tp) for _ in range(parties)]
+    sks = [mk.mk_party_keygen(g, tp, device=dev) for _ in range(parties)]
     ck = mk.mk_cloud_keygen(g, sks, tp, device=dev, forms=("fblock", "fbstream"),
                             keep_samples=True)
     tm = tmesh.make_mesh(n_batch=1, n_party=parties, devices=[dev] * parties)

@@ -132,6 +132,6 @@ def test_sel_kernel_equals_plain_version(cuda_device, digits, N, B):
         want = fblock.blind_rotate_streamed(a, sel, bara, *args, stepvec=sv, chunk=4)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        fb = fblock.build_fblocks(samples, args[0], cuda_device)
+        fb = fblock.build_rotate_key(samples, args[0], cuda_device)
         assert torch.equal(got, cuda_rotate.blind_rotate_cuda(a, fb, bara, *args, stepvec=sv))
     assert cuda_rotate.blind_rotate_sel_cuda.launches == before + 2

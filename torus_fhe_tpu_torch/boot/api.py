@@ -3,7 +3,9 @@
 Port of torus_fhe_tpu/boot/api.py. Sampling and the exact keygen products
 run on the generator's device (the host, for a CPU generator); the F-block
 expansion of the bootstrapping key runs on ``device``, where the finished
-keys live.
+keys live. ``device=None`` is the card (core/device.resolve_device): the
+current CUDA device, or a RuntimeError without one; ``device="cpu"`` runs the
+plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.params import SchemeParams
 from ..core.torus import encode_message
 from ..lwe import LweKey, LweSample, lwe_encrypt, lwe_keygen, lwe_phase
@@ -33,13 +36,14 @@ class CloudKey(NamedTuple):
 
 def make_secret_key(generator: torch.Generator, params: SchemeParams,
                     device=None) -> SecretKey:
-    return SecretKey(params, lwe_keygen(generator, params.lwe, device=device))
+    return SecretKey(params, lwe_keygen(generator, params.lwe, device=resolve_device(device)))
 
 
 def make_cloud_key(generator: torch.Generator, secret_key: SecretKey,
                    device=None) -> CloudKey:
     """Bootstrapping and keyswitch keys under a fresh RLWE key."""
     params = secret_key.params
+    device = resolve_device(device)
     rlwe_key = rlwe_keygen(generator, params.rlwe)
     bk = bootstrap_keygen(generator, params.bs_noise_stddev, secret_key.key,
                           rlwe_key, params, device=device)
@@ -51,6 +55,7 @@ def make_cloud_key(generator: torch.Generator, secret_key: SecretKey,
 def make_key_pair(generator: torch.Generator, params: SchemeParams,
                   device=None) -> tuple[SecretKey, CloudKey]:
     """(secret, cloud) pair, both on ``device``."""
+    device = resolve_device(device)
     sk = make_secret_key(generator, params, device=device)
     return sk, make_cloud_key(generator, sk, device=device)
 

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.device import resolve_device
 from ..core.params import SchemeParams
 from ..core.torus import decode_message
 from ..lwe import LweKey, LweSample
@@ -26,8 +27,10 @@ from .keyswitch import KeyswitchKey, keyswitch
 class BootstrapKey(NamedTuple):
     """n TGSW encryptions of the LWE key bits.
 
-    ``fb``: the expanded F-block key (n, D*R*bs, ncols*bs) int8, on the
-    device the rotate runs on (5.45 GB at tfhe_128_tpu_fast);
+    ``fb``: the expanded F-block key, int8, on the device the rotate runs on
+    (5.45 GB at tfhe_128_tpu_fast), in the form that device's rotate reads
+    (``fblock.build_rotate_key``): the kernel layout (n, D, ncols*bs, R*bs)
+    on a CUDA device, (n, D*R*bs, ncols*bs) on the CPU;
     ``samples``: the compact TGSW samples (n, l, k+1, k+1, N) int32, on the
     host, from which ``fb`` is built.
     """
@@ -44,20 +47,23 @@ def bk_geometry(params: SchemeParams) -> fblock.FBlockGeometry:
 
 def bootstrap_key_from_samples(samples: torch.Tensor, params: SchemeParams,
                                device=None) -> BootstrapKey:
-    """Expand compact TGSW samples into the F-block key on ``device``."""
+    """Expand compact TGSW samples into the F-block key on ``device`` (None:
+    the card, core/device.resolve_device; ``"cpu"``: the CPU)."""
+    device = resolve_device(device)
     samples = samples.cpu()
-    return BootstrapKey(fblock.build_fblocks(samples.numpy(), bk_geometry(params), device),
+    return BootstrapKey(fblock.build_rotate_key(samples.numpy(), bk_geometry(params), device),
                         samples)
 
 
 def bootstrap_keygen(generator: torch.Generator, alpha: float, lwe_key: LweKey,
                      rlwe_key: RLweKey, params: SchemeParams, device=None) -> BootstrapKey:
     """TGSW-encrypt each LWE key bit under the RLWE key (sampling and exact
-    products on the host), then build the F-block key on ``device``. The
-    body is rounded to the dropped bytes' scale (``bk_drop_limbs``)."""
+    products on the host), then build the F-block key on ``device`` (None:
+    the card). The body is rounded to the dropped bytes' scale (``bk_drop_limbs``)."""
     if params.bk_mask_quantum_bits:
         raise ValueError("quantized-mask bootstrapping keys are insecure (key "
                          "recovery by rounding and linear algebra) and withdrawn")
+    device = resolve_device(device)
     gsw = tgsw_encrypt(generator, lwe_key.key, alpha, rlwe_key, params.tgsw,
                        params.rlwe, body_round_bits=8 * params.bk_drop_limbs)
     return bootstrap_key_from_samples(gsw.samples, params, device)

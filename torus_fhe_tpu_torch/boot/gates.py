@@ -74,7 +74,10 @@ def gate_not(ck: CloudKey, x: LweSample) -> LweSample:
 
 
 def gate_constant(ck: CloudKey, values: torch.Tensor, device=None) -> LweSample:
-    """Noiseless encryptions of the booleans ``values``."""
+    """Noiseless encryptions of the booleans ``values``, on ``device`` (None:
+    where the cloud key lives)."""
+    if device is None:
+        device = ck.keyswitch_key.mat.device
     values = torch.as_tensor(values, dtype=torch.bool, device=device)
     mu = torch.where(values, EIGHTH[1], EIGHTH[-1]).to(torch.int32)
     return lwe_noiseless_trivial(mu, ck.params.lwe, values.shape, device=values.device)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..core.device import resolve_device
 from ..core.params import KeyswitchParams
 from ..core.torus import double_to_torus
 from ..lwe import LweKey, LweSample
@@ -39,7 +40,9 @@ def pad_table(mat: torch.Tensor) -> torch.Tensor:
 def keyswitch_keygen(generator: torch.Generator, alpha: float, params: KeyswitchParams,
                      out_key: LweKey, in_key: LweKey, device=None) -> KeyswitchKey:
     """ks[i, j, h] = LWE_out((s_in[i] * h) << (32 - j*log2_base)) with
-    re-centred gaussian noise, split into byte limbs on the host."""
+    re-centred gaussian noise, split into byte limbs on the host; the table
+    goes to ``device`` (None: the card, core/device.resolve_device)."""
+    device = resolve_device(device)
     n_in, n_out = in_key.size, out_key.size
     l = params.decomp_length
     base = 1 << params.log2_base

@@ -5,7 +5,8 @@ LWE key bits, the compact TGSW samples and the keyswitch table of a JAX
 ``SecretKey``/``CloudKey`` (``np.asarray`` of each field) and rebuilds its own
 F-block key from the samples. The same holds for the 3gen multikey keys
 (``MKSecretKey``, ``MKCloudKey`` made with ``keep_samples=True``). No JAX
-import is needed here.
+import is needed here. Every loader puts its result on ``device``; None is
+the card (core/device.resolve_device), ``"cpu"`` the CPU.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from .boot.api import CloudKey, SecretKey
 from .boot.bootstrap import bootstrap_key_from_samples
 from .boot.keyswitch import KeyswitchKey, pad_table
+from .core.device import resolve_device
 from .core.params import SchemeParams, SchemeParams3Gen
 from .lwe import LweKey, LweSample
 from .mk import keys3gen
@@ -27,7 +29,7 @@ def secret_key_from_numpy(params: SchemeParams, key_bits: np.ndarray,
                           device=None) -> SecretKey:
     """key_bits: (n,) LWE key bits (``sk.key.key``)."""
     return SecretKey(params, LweKey(torch.tensor(np.asarray(key_bits, np.int32),
-                                                device=device)))
+                                                device=resolve_device(device))))
 
 
 def cloud_key_from_numpy(params: SchemeParams, samples: np.ndarray, ks_mat: np.ndarray,
@@ -35,6 +37,7 @@ def cloud_key_from_numpy(params: SchemeParams, samples: np.ndarray, ks_mat: np.n
     """samples: (n, l, k+1, k+1, N) TGSW samples (``bootstrap_key.samples``);
     ks_mat: (n_in*l*(base-1), (n_out+1)*4) int8 table
     (``keyswitch_key.mat``). The F-block key is built on ``device``."""
+    device = resolve_device(device)
     bk = bootstrap_key_from_samples(torch.tensor(np.asarray(samples, np.int32)),
                                     params, device)
     mat = pad_table(torch.tensor(np.asarray(ks_mat, np.int8)))
@@ -43,6 +46,7 @@ def cloud_key_from_numpy(params: SchemeParams, samples: np.ndarray, ks_mat: np.n
 
 def lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> LweSample:
     """An LWE batch: a (..., n), b (...,), as int32."""
+    device = resolve_device(device)
     return LweSample(torch.tensor(np.asarray(a, np.int32), device=device),
                      torch.tensor(np.asarray(b, np.int32), device=device))
 
@@ -51,6 +55,7 @@ def mk_secret_keys_from_numpy(params: SchemeParams3Gen, lwe_keys, rlwe_keys,
                               device=None) -> list:
     """lwe_keys: per party (n,) LWE key bits (``sk.lwe.key``); rlwe_keys: per
     party (k, N) ternary ring keys (``sk.rlwe.key``)."""
+    device = resolve_device(device)
     return [keys3gen.MKSecretKey(
         LweKey(torch.tensor(np.asarray(lk, np.int32), device=device)),
         RLweKey(torch.tensor(np.asarray(rk, np.int32), device=device), params.rlwe_bits))
@@ -66,10 +71,11 @@ def mk_cloud_key_from_numpy(params: SchemeParams3Gen, samples: np.ndarray,
     ``device``."""
     return keys3gen.cloud_key_from_samples(
         params, np.array(samples, np.int64), torch.tensor(np.asarray(ks_mat, np.int8)),
-        parties, forms, device, keep_samples=True)
+        parties, forms, resolve_device(device), keep_samples=True)
 
 
 def mk_lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> MKLweSample:
     """A multikey batch: a (..., parties, n), b (...,), as int32."""
+    device = resolve_device(device)
     return MKLweSample(torch.tensor(np.asarray(a, np.int32), device=device),
                        torch.tensor(np.asarray(b, np.int32), device=device))

@@ -75,7 +75,10 @@ def mk_gate_mux(ck: MKCloudKey, x: MKLweSample, y: MKLweSample,
 
 
 def mk_gate_constant(ck: MKCloudKey, values, device=None) -> MKLweSample:
-    """Noiseless trivial multikey encryptions of the booleans ``values``."""
+    """Noiseless trivial multikey encryptions of the booleans ``values``, on
+    ``device`` (None: where the cloud key lives)."""
+    if device is None:
+        device = ck.ks_mat.device
     values = torch.as_tensor(values, dtype=torch.bool, device=device)
     mu = torch.where(values, EIGHTH[1], EIGHTH[-1]).to(torch.int32)
     return mk_lwe_noiseless_trivial(mu, ck.params.lwe, ck.parties, values.shape,

@@ -16,7 +16,8 @@ a 32-bit F-block key: ``fblock`` expands it (``bk_fb``, the Hopper kernel of
 ops/cuda_rotate.blind_rotate_cuda), ``fbstream`` keeps the compact lines
 (``bk_fb_sel``, 256x smaller; the compact-key kernel
 ops/cuda_rotate.blind_rotate_sel_cuda). Keygen products run on the host in
-exact numpy (ops/hostmath) at 64 bits; the finished keys move to ``device``.
+exact numpy (ops/hostmath) at 64 bits; the finished keys move to ``device``
+(None: the card, core/device.resolve_device; ``"cpu"``: the CPU).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from ..boot.keyswitch import keyswitch_keygen, pad_table
 from ..core import rng
+from ..core.device import resolve_device
 from ..core.params import SchemeParams3Gen, TGswParams
 from ..lwe import LweKey, lwe_keygen
 from ..ops import fblock, hostmath
@@ -119,8 +121,9 @@ class MKCloudKey:
     """Assembled multikey cloud key: the parties*n-step bootstrapping key in
     one or both fast forms, and the party-concatenated keyswitch tables.
 
-    ``bk_fb``: the hi-word rounded key as an expanded 32-bit F-block key
-    (parties*n, D*R*bs, 8*bs) int8. ``bk_fb_sel``: the same rounded key as
+    ``bk_fb``: the hi-word rounded key as an expanded 32-bit F-block key,
+    int8: the kernel layout (parties*n, D, 8*bs, R*bs) on a CUDA device,
+    (parties*n, D*R*bs, 8*bs) on the CPU (``fblock.build_rotate_key``). ``bk_fb_sel``: the same rounded key as
     compact lines (parties*n, R, 2N, 8) int8 (``fblock.build_sel`` layout;
     the compact kernel reads it as it is). ``bk_samples``: the raw 64-bit
     TGSW samples (parties*n, l, 2, 2, N) on the host, with ``keep_samples``.
@@ -187,6 +190,7 @@ class MKSecretKey(NamedTuple):
 
 def mk_party_keygen(generator: torch.Generator, params: SchemeParams3Gen,
                     device=None) -> MKSecretKey:
+    device = resolve_device(device)
     lwe = lwe_keygen(generator, params.lwe, device=device)
     return MKSecretKey(lwe, rlwe_keygen(generator, params.rlwe, negative=True, device=device))
 
@@ -209,11 +213,12 @@ def cloud_key_from_samples(params: SchemeParams3Gen, samples: np.ndarray,
     int8: round to the hi word, build ``forms`` and pad the tables, on
     ``device``."""
     _check_forms(params, forms)
+    device = resolve_device(device)
     geom = mk_fb_geometry(params, parties)
     hi = hi_round_samples(samples)
     return MKCloudKey(
         pad_table(ks_mat).to(device), parties, params,
-        bk_fb=fblock.build_fblocks(hi, geom, device) if "fblock" in forms else None,
+        bk_fb=fblock.build_rotate_key(hi, geom, device) if "fblock" in forms else None,
         bk_samples=torch.from_numpy(samples) if keep_samples else None,
         bk_fb_sel=(torch.from_numpy(fblock.build_sel(hi, geom)).to(device)
                    if "fbstream" in forms else None))
@@ -233,6 +238,7 @@ def mk_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[MKSecretKe
     if parties > params.max_parties:
         raise ValueError(f"{parties} parties, the set serves {params.max_parties}")
     _check_forms(params, forms)
+    device = resolve_device(device)
     crp = gen_crp(generator, params)
     common = common_public_key([public_keygen(generator, sk.rlwe, crp, params)
                                 for sk in secret_keys])
@@ -240,6 +246,7 @@ def mk_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[MKSecretKe
                               for sk in secret_keys])  # (parties*n, l, 2, 2, N), party-major
     cols = (params.lwe_size + 1) * 4
     mats = [keyswitch_keygen(generator, params.ks_noise_stddev, params.ks, sk.lwe,
-                             extract_lwe_key(sk.rlwe)).mat[:, :cols] for sk in secret_keys]
+                             extract_lwe_key(sk.rlwe), device=device).mat[:, :cols]
+            for sk in secret_keys]
     return cloud_key_from_samples(params, samples, torch.cat(mats, dim=1), parties, forms,
                                   device, keep_samples)

@@ -2,9 +2,12 @@
 dispatch.
 
 ``blind_rotate_cuda`` launches csrc/blind_rotate.cu over the expanded F-block
-key: it replaces the Pallas TPU kernel
-torus_fhe_tpu/ops/pallas_rotate.py::blind_rotate_pallas, in both init modes
-(explicit accumulator, or the stepvec gate test vector).
+key in the kernel layout (ops/fblock.to_kernel_layout): it replaces the Pallas
+TPU kernel torus_fhe_tpu/ops/pallas_rotate.py::blind_rotate_pallas, in both
+init modes (explicit accumulator, or the stepvec gate test vector). Every CMux
+step is an int8 tensor-core GEMM over the whole card; ``rotate_plan`` is its
+launch plan (tile shape, padded batch, tiles per wave, scratch and shared
+memory), computed here so that the CPU tests reach it.
 ``blind_rotate_sel_cuda`` launches csrc/blind_rotate_sel.cu over the compact
 key lines (ops/fblock.build_sel): it replaces the Pallas route of
 torus_fhe_tpu/ops/fblock.py::blind_rotate_streamed, in the same two modes.
@@ -27,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -41,9 +45,66 @@ HEADERS = [os.path.join(CSRC, "cmux_step.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_TILE = 16  # gates per block of blind_rotate.cu: tiles 1, 2, 4, 8, 16
 SEL_MAX_TILE = 4  # gates per block of blind_rotate_sel.cu: tiles 1, 2, 4
 MAX_COLS = 32
+MAX_LIMBS = 4  # limb columns of one polynomial that a tile of blind_rotate.cu holds
+# what an H100 SM holds at once (CUDA occupancy rules): shared memory (each
+# block is charged 1 KiB on top of its own), threads, blocks
+SM_SHARED_BYTES, BLOCK_SHARED_OVERHEAD = 228 * 1024, 1024
+SM_MAX_THREADS, SM_MAX_BLOCKS = 2048, 32
+
+
+class TileConfig(NamedTuple):
+    """One instantiation of blind_rotate.cu: a block computes ``bm`` gates x
+    the limb columns of one polynomial for ``wq`` coefficients, through
+    ``stages`` cp.async stages of ``bk`` reduction bytes, on ``threads``
+    threads; at most ``resident`` blocks of the grid share an SM (the
+    kernel's __launch_bounds__ give it the registers for that many). With
+    ``ksplit`` > 1 the block's warps split the tile's reduction, each through
+    a ring of its own."""
+
+    bm: int
+    wq: int
+    stages: int
+    threads: int
+    resident: int
+    bk: int
+    ksplit: int = 1
+
+    @property
+    def smem_bytes(self) -> int:
+        """The rings: per stage ``bk`` bytes of ``bm`` digit rows and of
+        MAX_LIMBS * ``wq`` key rows."""
+        return self.ksplit * self.stages * (self.bm + MAX_LIMBS * self.wq) * self.bk
+
+
+# indexed by the ``config`` argument of blind_rotate_launch: four tile shapes
+# with 128-byte pipeline stages, and the one that takes a geometry whose R*bs
+# is no multiple of 128 (an odd R at bs = 64), with 64-byte stages
+ROTATE_CONFIGS = (TileConfig(16, 8, 3, 128, 3, 128, 4), TileConfig(64, 16, 3, 128, 3, 128),
+                  TileConfig(128, 32, 4, 256, 1, 128), TileConfig(256, 32, 3, 256, 1, 128),
+                  TileConfig(64, 16, 4, 128, 3, 64))
+NARROW_CONFIG = 4
+# peak rates of an H100 SXM that the bounds are taken against: dense int8
+# tensor-core operations, and device-memory bytes
+INT8_OPS_PER_S = 1979e12
+BYTES_PER_S = 3.35e12
+
+
+class RotatePlan(NamedTuple):
+    """Launch plan of blind_rotate.cu for one call (``rotate_plan``)."""
+
+    config: int        # index into ROTATE_CONFIGS
+    tile: TileConfig
+    m_tiles: int       # gate tiles: ceil(B / bm)
+    padded_m: int      # m_tiles * bm; rows past B are zero-filled and never stored
+    n_tiles: int       # per step: nb output blocks x C polynomials x bs / wq
+    tiles: int         # m_tiles * n_tiles GEMM tiles per step
+    blocks: int        # the persistent grid asked for (the C side cuts it to what is resident)
+    waves: float       # tiles / SMs: rounds of the card per step
+    fill: float        # tiles / (ceil(waves) * SMs): busy share of the rounds (1 below one)
+    smem_bytes: int    # dynamic shared memory per block
+    scratch_bytes: int  # the int8 digit rows, B * R * N
 
 
 def _nvcc() -> str:
@@ -98,8 +159,8 @@ def _library(name: str) -> ctypes.CDLL:
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     ip = ctypes.POINTER(ctypes.c_int)
     if name == "blind_rotate":
-        lib.blind_rotate_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i,
-                                            u, u, i, ip, ip, vp]
+        lib.blind_rotate_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
+                                            u, u, i, ip, ip, vp, ip]
         lib.blind_rotate_launch.restype = ctypes.c_int
     else:
         lib.blind_rotate_sel_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
@@ -114,11 +175,91 @@ def _col_arrays(geom: FBlockGeometry):
             (ctypes.c_int * ncols)(*[s for _, s in geom.cols]))
 
 
-def smem_bytes(bt: int, geom: FBlockGeometry, decomp_length: int) -> int:
-    """Dynamic shared memory of a block of blind_rotate.cu with ``bt``
-    gates: the accumulators (C*N int32 each) and the digit rows (l*C*N
-    int8 each)."""
-    return bt * geom.C * geom.N * (4 + decomp_length)
+def poly_groups(geom: FBlockGeometry) -> list:
+    """Per polynomial c of the accumulator, (first limb column, number of
+    limb columns). blind_rotate.cu gives one thread every limb of its
+    coefficients, so a polynomial's columns must be consecutive and at most
+    MAX_LIMBS, and every polynomial must have one."""
+    groups = [[None, 0] for _ in range(geom.C)]
+    for ci, (p, _) in enumerate(geom.cols):
+        if not 0 <= p < geom.C:
+            raise ValueError(f"limb column {ci} names polynomial {p} of {geom.C}")
+        first, count = groups[p]
+        if first is None:
+            groups[p][0] = first = ci
+        if first + count != ci or count == MAX_LIMBS:
+            raise ValueError(f"the limb columns of polynomial {p} must be consecutive and at "
+                             f"most {MAX_LIMBS}: {geom.cols}")
+        groups[p][1] += 1
+    if any(first is None for first, _ in groups):
+        raise ValueError(f"a polynomial without a limb column: {geom.cols}")
+    return [tuple(g) for g in groups]
+
+
+def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
+                sm_count: int) -> RotatePlan:
+    """How blind_rotate.cu runs ``B`` gates on a card of ``sm_count`` SMs.
+
+    The tile: 16 gates x 8 coefficients up to 16 gates (the key stream
+    bounds it: many small tiles spread it over every SM); else 128 x 32 when
+    that still gives at least three quarters of the SMs a tile, else 64 x 16;
+    and 256 x 32, which draws a quarter less through L2, where it pads the
+    batch no further, gives every SM a tile and keeps the rounds as busy.
+    A geometry whose R*bs is no multiple of the 128-byte stages takes the
+    one 64 x 16 tile with 64-byte stages at every B. The grid: every tile a block, up to what is resident at once (the
+    tile's ``resident`` per SM, within shared memory, threads and the block
+    limit): blocks that share an SM share its rounds, so more of them only
+    hide latency. A ragged last round is left ragged: tiles are dealt
+    round-robin, gate tiles of one key box side by side."""
+    if B < 1:
+        raise ValueError(f"a launch needs at least one gate, got {B}")
+    rbs = geom.R * geom.bs
+    if geom.R != decomp_length * geom.C or geom.bs % 32 or rbs % 64 or geom.N % geom.bs:
+        raise ValueError(f"blind_rotate.cu takes bs a multiple of 32 and R*bs a multiple of "
+                         f"64: {geom}")
+    poly_groups(geom)
+    if B * geom.C * geom.N >= 2**31:
+        raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
+
+    def count(cfg):
+        m_tiles = -(-B // cfg.bm)
+        return m_tiles, geom.nb * geom.C * (geom.bs // cfg.wq)
+
+    def fill(tiles):
+        return tiles / (-(-tiles // sm_count) * sm_count) if tiles > sm_count else 1.0
+
+    small, mid, big, huge = 0, 1, 2, 3
+    if rbs % ROTATE_CONFIGS[small].bk:
+        config = NARROW_CONFIG
+    elif B <= ROTATE_CONFIGS[small].bm:
+        config = small
+    else:
+        m_big, n_big = count(ROTATE_CONFIGS[big])
+        m_huge, _ = count(ROTATE_CONFIGS[huge])
+        config = big if 4 * m_big * n_big >= 3 * sm_count else mid
+        if m_huge * 2 == m_big and m_huge * n_big >= sm_count and \
+                fill(m_huge * n_big) >= fill(m_big * n_big):
+            config = huge
+    cfg = ROTATE_CONFIGS[config]
+    m_tiles, n_tiles = count(cfg)
+    tiles = m_tiles * n_tiles
+    per_sm = min(SM_SHARED_BYTES // (cfg.smem_bytes + BLOCK_SHARED_OVERHEAD),
+                 SM_MAX_THREADS // cfg.threads, SM_MAX_BLOCKS, cfg.resident)
+    blocks = min(tiles, per_sm * sm_count)
+    return RotatePlan(config, cfg, m_tiles, m_tiles * cfg.bm, n_tiles, tiles, blocks,
+                      tiles / sm_count, fill(tiles), cfg.smem_bytes, B * geom.R * geom.N)
+
+
+def rotate_bound_ms(B: int, geom: FBlockGeometry, key_bytes: int) -> tuple:
+    """(bound ms, what bounds it) of one blind rotate from its shapes: the
+    int8 multiply-adds of n steps, two operations each, over the card's int8
+    peak, against the bytes read once (key, bara, an accumulator in) and
+    written once (the accumulator out) over the device-memory rate."""
+    macs = geom.n * B * (geom.R * geom.N) * (len(geom.cols) * geom.N)
+    ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
+    moved = key_bytes + B * geom.n * 4 + 2 * B * geom.C * geom.N * 4
+    bytes_ms = moved / BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def sel_smem_bytes(bt: int, geom: FBlockGeometry) -> int:
@@ -147,9 +288,9 @@ def _pick_tile(B: int, max_tile: int, nbytes, device) -> int:
 
 
 def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
-                 log2_base: int, stepvec, key_shape: tuple, what: str) -> None:
-    """The checks both kernels share; ``key`` must be int8 (steps,) +
-    ``key_shape``."""
+                 log2_base: int, stepvec, key_shapes: tuple, what: str) -> None:
+    """The checks both kernels share; ``key`` must be int8 (steps,) + one of
+    ``key_shapes``."""
     if geom.bits != 32:
         raise ValueError(f"the blind rotate implements the 32-bit torus, not {geom.bits}")
     if not 1 <= log2_base <= 8 or decomp_length * log2_base > 32:
@@ -161,10 +302,9 @@ def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
     if bound >= 2**31:
         raise ValueError(f"R*N*2^(lb-1)*128 = {bound} is not below 2^31: the int32 "
                          f"sums of {geom} with log2_base={log2_base} are not exact")
-    if key.dtype != torch.int8 or key.dim() != 1 + len(key_shape) or \
-            tuple(key.shape[1:]) != key_shape:
-        raise ValueError(f"{what} must be int8 (steps, {', '.join(map(str, key_shape))}), "
-                         f"got {key.dtype} {tuple(key.shape)}")
+    if key.dtype != torch.int8 or tuple(key.shape[1:]) not in key_shapes:
+        shapes = " or ".join(f"(steps, {', '.join(map(str, s))})" for s in key_shapes)
+        raise ValueError(f"{what} must be int8 {shapes}, got {key.dtype} {tuple(key.shape)}")
     if bara.dtype != torch.int32 or bara.dim() != 2 or bara.shape[1] != key.shape[0]:
         raise ValueError(f"bara must be int32 (B, {key.shape[0]}), got "
                          f"{bara.dtype} {tuple(bara.shape)}")
@@ -187,11 +327,13 @@ def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
 
 def check_args(acc_a, fb, bara, geom: FBlockGeometry, decomp_length: int,
                log2_base: int, stepvec=None) -> None:
-    """Raise ValueError on anything blind_rotate.cu (and its plain version)
-    does not take: types, shapes, a torus other than 32 bits, digits wider
-    than a byte, sums that could leave int32, mixed devices."""
+    """Raise ValueError on anything blind_rotate.cu and its plain version do
+    not take: types, shapes, a torus other than 32 bits, digits wider than a
+    byte, sums that could leave int32, mixed devices. ``fb`` is the expanded
+    key in the ``build_fblocks`` layout or in the kernel layout."""
     _check_chain(acc_a, fb, bara, geom, decomp_length, log2_base, stepvec,
-                 (geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs), "fb")
+                 ((geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs),
+                  fblock.kernel_layout_shape(geom)), "fb")
 
 
 def check_sel_args(acc_a, sel, bara, geom: FBlockGeometry, decomp_length: int,
@@ -199,7 +341,7 @@ def check_sel_args(acc_a, sel, bara, geom: FBlockGeometry, decomp_length: int,
     """The same for blind_rotate_sel.cu, whose key is the compact lines
     (steps, R, 2N, ncols) int8."""
     _check_chain(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec,
-                 (geom.R, 2 * geom.N, len(geom.cols)), "sel")
+                 ((geom.R, 2 * geom.N, len(geom.cols)),), "sel")
     if geom.N % 8:
         raise ValueError(f"the compact kernel takes N a multiple of 8, not {geom.N}")
 
@@ -218,38 +360,53 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def blind_rotate_cuda(acc_a, fb: torch.Tensor, bara: torch.Tensor,
+def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
                       geom: FBlockGeometry, decomp_length: int, log2_base: int,
                       offset: int, stepvec=None) -> torch.Tensor:
-    """The n-step CMux chain over the expanded key on the card, one launch.
+    """The n-step CMux chain over the expanded key on the card: one
+    cooperative launch, whose persistent grid runs every step as a
+    tensor-core GEMM (``rotate_plan``).
 
     acc_a: (B, C, N) int32, or None with ``stepvec=(mu, barb)`` (int mu,
-    barb (B,) int32); fb: (n, D*R*bs, ncols*bs) int8 (ops/fblock layout);
-    bara: (B, n) int32. All CUDA tensors. Returns (B, C, N) int32, allocated
-    here; the launch goes on the current stream. ``blind_rotate_cuda.launches``
-    counts the launches.
+    barb (B,) int32); key: the kernel layout (n, D, ncols*bs, R*bs) int8
+    (``fblock.build_rotate_key`` / ``to_kernel_layout``); bara: (B, n) int32.
+    All CUDA tensors. Returns (B, C, N) int32; the output, which is the
+    kernel's accumulator, and the digit scratch are allocated here, and the
+    launch goes on the current stream. ``blind_rotate_cuda.launches`` counts
+    the launches, ``blind_rotate_cuda.grid`` is the last launch's grid.
     """
-    check_args(acc_a, fb, bara, geom, decomp_length, log2_base, stepvec)
-    if fb.device.type != "cuda":
-        raise ValueError(f"blind_rotate_cuda takes CUDA tensors, got {fb.device}")
+    check_args(acc_a, key, bara, geom, decomp_length, log2_base, stepvec)
+    if key.device.type != "cuda":
+        raise ValueError(f"blind_rotate_cuda takes CUDA tensors, got {key.device}")
+    if key.dim() != 4:
+        raise ValueError("blind_rotate_cuda reads the kernel layout (n, D, ncols*bs, R*bs): "
+                         "build the key on the card (fblock.build_rotate_key) or convert it "
+                         "once (fblock.to_kernel_layout)")
     B = bara.shape[0]
-    out = torch.empty((B, geom.C, geom.N), dtype=torch.int32, device=fb.device)
+    out = torch.empty((B, geom.C, geom.N), dtype=torch.int32, device=key.device)
     if B == 0:
         return out
-    fb, bara, acc_a, barb, mu = _launch_args(acc_a, fb, bara, stepvec)
-    bt = _pick_tile(B, MAX_TILE, lambda t: smem_bytes(t, geom, decomp_length), fb.device)
-    err = _library("blind_rotate").blind_rotate_launch(
-        out.data_ptr(), _ptr(acc_a), _ptr(barb), bara.data_ptr(), fb.data_ptr(),
-        B, bt, fb.shape[0], geom.N, geom.bs, geom.C, decomp_length, log2_base,
-        offset & 0xFFFFFFFF, mu, len(geom.cols), *_col_arrays(geom),
-        torch.cuda.current_stream(fb.device).cuda_stream)
+    plan = rotate_plan(B, geom, decomp_length,
+                       torch.cuda.get_device_properties(key.device).multi_processor_count)
+    key, bara, acc_a, barb, mu = _launch_args(acc_a, key, bara, stepvec)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(key.device):
+        dig = torch.empty(plan.scratch_bytes, dtype=torch.int8, device=key.device)
+        err = _library("blind_rotate").blind_rotate_launch(
+            out.data_ptr(), _ptr(acc_a), _ptr(barb), bara.data_ptr(), key.data_ptr(),
+            dig.data_ptr(), B, plan.config, plan.blocks, key.shape[0], geom.N, geom.bs, geom.C,
+            decomp_length, log2_base, offset & 0xFFFFFFFF, mu, len(geom.cols),
+            *_col_arrays(geom), torch.cuda.current_stream(key.device).cuda_stream,
+            ctypes.byref(grid))
     if err:
         raise RuntimeError(f"blind_rotate kernel launch failed: CUDA error {err}")
     blind_rotate_cuda.launches += 1
+    blind_rotate_cuda.grid = grid.value
     return out
 
 
 blind_rotate_cuda.launches = 0
+blind_rotate_cuda.grid = 0
 
 
 def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
@@ -289,8 +446,8 @@ def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
            decomp_length: int, log2_base: int, offset: int,
            stepvec=None) -> torch.Tensor:
     """Blind rotate over the expanded key on the tensors' device: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors; anything
-    else raises."""
+    kernel for CUDA tensors (the key in the kernel layout), the plain version
+    for CPU tensors (either layout); anything else raises."""
     if fb.device.type == "cuda":
         return blind_rotate_cuda(acc_a, fb, bara, geom, decomp_length, log2_base,
                                  offset, stepvec)

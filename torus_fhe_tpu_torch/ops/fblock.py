@@ -7,11 +7,17 @@ ext[(t - u) mod 2N], ext = [k, -k]. Cut into bs x bs blocks, block (i, j)
 depends only on delta = (j - i) mod D, D = 2N/bs, so per (row poly r, kept
 byte-limb column) the key stores D blocks. The expanded key of one CMux step
 is a (D*R*bs, ncols*bs) int8 matrix with the delta blocks in ``seq_perm``
-order; its bytes are identical to the JAX package's ``build_fblocks``, and the
-CUDA kernel (ops/cuda_rotate.py) reads this same layout.
+order; its bytes are identical to the JAX package's ``build_fblocks``. The
+CUDA kernel (ops/cuda_rotate.py, csrc/blind_rotate.cu) reads the same bytes
+in the KERNEL LAYOUT (n, D, ncols*bs, R*bs): each delta block transposed, so
+that the reduction index (row r, position p) is contiguous, as the int8
+tensor-core instructions want both operands (``to_kernel_layout``). A key
+holds one of the two: ``build_rotate_key`` makes the kernel layout on a CUDA
+device and the ``build_fblocks`` layout elsewhere.
 
 ``blind_rotate_fblock`` is the plain version of that kernel: word-exact, a
-Python loop over the n steps that runs on CPU and CUDA tensors alike.
+Python loop over the n steps that runs on CPU and CUDA tensors alike, over
+either layout.
 ``blind_rotate_streamed`` runs the same chain from the compact lines
 (``build_sel``), expanded chunk by chunk (``expand_fblock_chunk``): the plain
 version of the compact-key kernel.
@@ -140,13 +146,76 @@ def build_fblocks(samples: np.ndarray, geom: FBlockGeometry, device=None,
     return fb
 
 
+def kernel_layout_shape(geom: FBlockGeometry) -> tuple:
+    """Shape of one step of the kernel layout: (D, ncols*bs, R*bs)."""
+    return (geom.D, len(geom.cols) * geom.bs, geom.R * geom.bs)
+
+
+def to_kernel_layout(fb: torch.Tensor, geom: FBlockGeometry, chunk: int = 64) -> torch.Tensor:
+    """The expanded key (n, D*R*bs, ncols*bs) in the kernel layout
+    (n, D, ncols*bs, R*bs): kernel[s, m, col, r*bs + p] =
+    fb[s, m*R*bs + r*bs + p, col], a byte-exact permutation (each delta
+    block transposed), ``chunk`` steps at a time."""
+    n = fb.shape[0]
+    D, cols, rbs = kernel_layout_shape(geom)
+    if tuple(fb.shape[1:]) != (D * rbs, cols):
+        raise ValueError(f"fb {tuple(fb.shape)} does not match {geom}")
+    out = torch.empty((n, D, cols, rbs), dtype=fb.dtype, device=fb.device)
+    for s0 in range(0, n, chunk):
+        out[s0:s0 + chunk] = fb[s0:s0 + chunk].reshape(-1, D, rbs, cols).transpose(2, 3)
+    return out
+
+
+def from_kernel_layout(key: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
+    """The inverse of ``to_kernel_layout``: (n, D*R*bs, ncols*bs)."""
+    D, cols, rbs = kernel_layout_shape(geom)
+    if tuple(key.shape[1:]) != (D, cols, rbs):
+        raise ValueError(f"key {tuple(key.shape)} does not match {geom}")
+    return key.transpose(2, 3).reshape(key.shape[0], D * rbs, cols)
+
+
+def expand_kernel_chunk(sel_chunk: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
+    """Expand compact lines straight into the kernel layout on their device:
+    (cs, R, 2N, ncols) -> (cs, D, ncols*bs, R*bs), byte-equal to
+    ``to_kernel_layout(expand_fblock_chunk(sel_chunk))``."""
+    cs, R, two_n, ncols = sel_chunk.shape
+    if (R, two_n, ncols) != (geom.R, 2 * geom.N, len(geom.cols)):
+        raise ValueError(f"lines {tuple(sel_chunk.shape)} do not match {geom}")
+    D, bs = geom.D, geom.bs
+    idx = torch.as_tensor(_delta_index(geom)[seq_perm(D)].reshape(-1),
+                          device=sel_chunk.device)
+    g = sel_chunk.index_select(2, idx).reshape(cs, R, D, bs, bs, ncols)
+    g = g.permute(0, 2, 5, 4, 1, 3)  # (cs, m, ncols, q, R, p)
+    return g.reshape(cs, D, ncols * bs, R * bs)
+
+
+def build_rotate_key(samples: np.ndarray, geom: FBlockGeometry, device,
+                     chunk: int = 64) -> torch.Tensor:
+    """The expanded key of raw TGSW samples (n, l, C, C, N) in the form the
+    blind rotate of ``device`` reads: the kernel layout (n, D, ncols*bs, R*bs)
+    on a CUDA device, where csrc/blind_rotate.cu runs, and the
+    ``build_fblocks`` layout elsewhere. One copy of the key either way."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return build_fblocks(samples, geom, device, chunk)
+    n = samples.shape[0]
+    sel = build_sel(samples, geom)
+    key = torch.empty((n,) + kernel_layout_shape(geom), dtype=torch.int8, device=device)
+    for s0 in range(0, n, chunk):
+        key[s0:s0 + chunk] = expand_kernel_chunk(
+            torch.from_numpy(sel[s0:s0 + chunk]).to(device), geom)
+    return key
+
+
 def contract_rows_fblock(d8: torch.Tensor, fstep: torch.Tensor,
                          geom: FBlockGeometry) -> torch.Tensor:
     """Contract int8 digit rows against one expanded F-block step.
 
     d8: (B, R, N) int8 rows (row r = digit level x poly); fstep:
-    (D*R*bs, ncols*bs) int8 in seq_perm order. Returns (B, C, N) int32:
-    out[c] = sum_r rows_r (*) K_{r,c}, as one exact int8 matmul.
+    (D*R*bs, ncols*bs) int8 in seq_perm order, or the same step in the kernel
+    layout (D, ncols*bs, R*bs), which is read through a transposed view.
+    Returns (B, C, N) int32: out[c] = sum_r rows_r (*) K_{r,c}, as one exact
+    int8 matmul.
     """
     B = d8.shape[0]
     nb, D, bs, R, C = geom.nb, geom.D, geom.bs, geom.R, geom.C
@@ -161,7 +230,11 @@ def contract_rows_fblock(d8: torch.Tensor, fstep: torch.Tensor,
     g = g * valid[None, None, :, :, None].to(torch.int8)
     dexp = g.movedim(2, 1).reshape(B * nb, R * D * bs)
     perm = torch.as_tensor(seq_perm(D), device=dev)  # an involution
-    fmat = fstep.reshape(D, R, bs, -1)[perm].movedim(0, 1).reshape(R * D * bs, -1)
+    if fstep.dim() == 3:  # kernel layout: (ncols*bs, R*D*bs) is fmat transposed
+        fmat = fstep.reshape(D, ncols * bs, R, bs)[perm].permute(1, 2, 0, 3).reshape(
+            ncols * bs, R * D * bs).t()
+    else:
+        fmat = fstep.reshape(D, R, bs, -1)[perm].movedim(0, 1).reshape(R * D * bs, -1)
     prod = poly.int8_matmul(dexp, fmat).reshape(B, nb, ncols, bs)
     comb = torch.zeros((B, nb, C, bs), dtype=torch.int32, device=dev)
     for ci, (p, shift) in enumerate(geom.cols):
@@ -197,7 +270,8 @@ def blind_rotate_fblock(acc_a, fb: torch.Tensor, bara: torch.Tensor,
 
     acc_a: (B, C, N) int32, or None with ``stepvec=(mu, barb)`` (barb (B,)
     int32) to start from the gate test vector; fb: (n, D*R*bs, ncols*bs)
-    int8; bara: (B, n) int32. Per step: acc += F-block product of the
+    int8, or the kernel layout (n, D, ncols*bs, R*bs); bara: (B, n) int32.
+    Per step: acc += F-block product of the
     decomposed (X^bara - 1) * acc. Returns (B, C, N) int32.
     """
     if log2_base > 8:

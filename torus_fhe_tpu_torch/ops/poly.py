@@ -146,11 +146,15 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (torch 2.11, CUDA 12.8) cuBLASLt also refused M = 17 and 24 at K = 64
     where M = 32 ran. So M is padded up to 32 here, on the CPU too, so that
     both devices run the same shapes; K and N must already be multiples of 8
-    (callers pad their tables once).
+    (callers pad their tables once). On CUDA a ``b`` whose reduction index
+    is contiguous (the transpose of a contiguous matrix) is passed as it is:
+    cuBLASLt reads it so.
     """
     M, K = a.shape
     if K % 8 or b.shape[1] % 8:
         raise ValueError(f"int8_matmul needs K and N multiples of 8, got {tuple(b.shape)}")
     if M < MIN_ROWS:
         a = torch.cat([a, a.new_zeros((MIN_ROWS - M, K))])
-    return torch._int_mm(a.contiguous(), b.contiguous())[:M]
+    if not (b.is_cuda and b.t().is_contiguous()):
+        b = b.contiguous()
+    return torch._int_mm(a.contiguous(), b)[:M]

@@ -59,13 +59,15 @@ def _party_hi_samples(ck_samples, params, parties: int) -> np.ndarray:
 
 
 def build_sharded_mk_fb(ck_samples, params, parties: int, mesh: Mesh) -> list:
-    """The party-sharded EXPANDED key: party p's (n, D*R*bs, ncols*bs) int8
-    F-blocks, built on the mesh's party-p device. The full key never exists
-    on one device, unless the mesh repeats it."""
+    """The party-sharded EXPANDED key: party p's n steps of F-blocks, int8,
+    built on the mesh's party-p device in the form its rotate reads
+    (``fblock.build_rotate_key``: the kernel layout (n, D, ncols*bs, R*bs) on
+    a CUDA device, (n, D*R*bs, ncols*bs) on the CPU). The full key never
+    exists on one device, unless the mesh repeats it."""
     _check_mesh(mesh, parties)
     hi = _party_hi_samples(ck_samples, params, parties)
     geom = _local_geom(params)
-    return [fblock.build_fblocks(hi[p], geom, dev) for p, dev in enumerate(mesh.party_devices())]
+    return [fblock.build_rotate_key(hi[p], geom, dev) for p, dev in enumerate(mesh.party_devices())]
 
 
 def build_sharded_mk_sel(ck_samples, params, parties: int, mesh: Mesh) -> list:
@@ -99,8 +101,7 @@ def mk_blind_rotate_pipelined(shards, bara: torch.Tensor, barb: torch.Tensor, mu
     """The pipelined multikey blind rotate. Returns the final (B, C, N)
     int32 accumulators (hi-word torus) on party 0's device.
 
-    shards: per party, the expanded key (n, rows, cols) from
-    ``build_sharded_mk_fb`` or the compact lines (n, R, 2N, ncols) from
+    shards: per party, the expanded key from ``build_sharded_mk_fb`` or the compact lines (n, R, 2N, ncols) from
     ``build_sharded_mk_sel``; bara: (B, parties, n) int32 mod-switched masks
     (party-major); barb: (B,) int32; mu32: the test vector's hi word. On
     CUDA tensors every rotate launches a kernel (blind_rotate.cu for the
@@ -121,7 +122,8 @@ def mk_blind_rotate_pipelined(shards, bara: torch.Tensor, barb: torch.Tensor, mu
     geom = _local_geom(params)
     tg32 = TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
     args = (geom, tg32.decomp_length, tg32.log2_base, tg32.offset)
-    rot = rotate_streamed if shards[0].dim() == 4 else rotate
+    compact = tuple(shards[0].shape[1:]) == (geom.R, 2 * geom.N, len(geom.cols))
+    rot = rotate_streamed if compact else rotate
     devs = mesh.party_devices()
     bara_p = [bara[:, p].contiguous().to(devs[p]) for p in range(parties)]  # (B, n) each
     barb0 = barb.to(devs[0])
