@@ -4,8 +4,9 @@
 Run from the root of the repository: ``python3 chip_smoke.py``. It builds the
 two blind-rotate kernels from torus_fhe_tpu_torch/csrc with nvcc (one nvcc
 per source, started together), holds each against its plain PyTorch version
-word for word (the expanded-key kernel also at batches ragged against each of
-its tile shapes, and as two launches on two streams at once), and drives
+word for word (both kernels also at batches ragged against each of their
+tile shapes and on the first steps of a full-size key, the expanded-key one
+as two launches on two streams at once), and drives
 these main paths, each with the launch counts set to 0 just before it and
 read just after:
 
@@ -70,12 +71,14 @@ NOISE_BAND = (0.75, 1.33)
 # the set whose shapes each kernel's JSON times are taken at
 MAIN_SHAPE = {"blind_rotate": "tfhe_128_tpu_fast", "blind_rotate_sel": "mk_8party_3gen"}
 RAGGED = (1, 37, 130)  # batches ragged against the 16-, 64- and 128-gate tiles
+SEL_RAGGED = (1, 37, 130, 256)  # the compact kernel's: one tile, ragged ones, several
+PIPE_REPS = 3  # timed repetitions of a pipelined rotate: min, median, max are printed
 # the party-pipelined sets (parallel/mk_pipeline.py): batch, and the key form
 # whose kernel every stage launches
 PIPE_BATCH = {"mk_8party_3gen": 256, "mk_2party_3gen": 1024}
 PIPE_FORM = {"mk_8party_3gen": "compact", "mk_2party_3gen": "expanded"}
 MICROBATCHES = 4
-STAGE_BATCH = 64  # one microbatch at 8 parties: one gate per block
+STAGE_BATCH = 64  # one microbatch at 8 parties
 
 
 def log(phase: str, msg: str) -> None:
@@ -102,6 +105,17 @@ def event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def event_once(fn):
+    """(result, milliseconds) of one cold call of fn on the card, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def rand_i32(rng, shape, lo=-2**31, hi=2**31):
@@ -407,15 +421,15 @@ def multikey(dev, rng) -> dict:
             sks = [mk.mk_party_keygen(g, params) for _ in range(2)]
             sel = mk.mk_cloud_keygen(g, sks, params, device=dev, forms=("fbstream",)).bk_fb_sel
             args = rot_args(params, 2)
-            for B in (1, 37):
+            for B in SEL_RAGGED:
                 acc, barb = rand_i32(rng, (B, 2, N)), rand_i32(rng, (B,), -N, N)
                 bara = rand_i32(rng, (B, sel.shape[0]), 0, 2 * N)
                 for mode, a, sv in (("acc", acc, None), ("stepvec", None, (1 << 29, barb))):
                     check(f"N={N} l={l} B={B} {mode}", "blind_rotate_sel",
                           cuda_rotate.blind_rotate_sel_cuda(a, sel, bara, *args, stepvec=sv),
                           fblock.blind_rotate_streamed(a, sel, bara, *args, stepvec=sv))
-            log("compact==plain", f"N={N} l={l} Bg=2^{lb}: {sel.shape[0]} steps, B=1 and 37, "
-                "both modes equal")
+            log("compact==plain", f"N={N} l={l} Bg=2^{lb}: {sel.shape[0]} steps, B in "
+                f"{SEL_RAGGED}, both modes equal")
 
     for name, parties, B in MK_SETS:
         params = P.PARAMETER_REGISTRY[name]()
@@ -483,22 +497,50 @@ def multikey(dev, rng) -> dict:
         bara = decode_message(t.a, 2 * N).reshape(B, -1)
         sv = (boot3gen.hi_word(gates3gen.MU), decode_message(t.b, 2 * N))
         args = rot_args(params, parties)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if parties == 8:  # the real key's first 16 steps at ragged batches, both init modes
+            sel16, args16 = ck.bk_fb_sel[:16], (args[0]._replace(n=16),) + args[1:]
+            for Br in RAGGED + (STAGE_BATCH,):
+                acc, barb = rand_i32(rng, (Br, 2, N)), rand_i32(rng, (Br,), -N, N)
+                bara16 = rand_i32(rng, (Br, 16), 0, 2 * N)
+                for mode, a, s in (("acc", acc, None), ("stepvec", None, (sv[0], barb))):
+                    check(f"{name} key, first 16 steps, B={Br} {mode}", "blind_rotate_sel",
+                          cuda_rotate.blind_rotate_sel_cuda(a, sel16, bara16, *args16, stepvec=s),
+                          fblock.blind_rotate_streamed(a, sel16, bara16, *args16, stepvec=s,
+                                                       chunk=16))
+            log("compact==plain", f"{name} key, first 16 steps: B in {RAGGED + (STAGE_BATCH,)}, "
+                "both modes equal")
         compact = cuda_rotate.blind_rotate_sel_cuda(None, ck.bk_fb_sel, bara, *args, stepvec=sv)
-        check(f"{name} B={B}", "blind_rotate_sel", compact,
-              fblock.blind_rotate_streamed(None, ck.bk_fb_sel, bara, *args, stepvec=sv))
+        # each plain version runs once: its check is its timing
+        plain_out, plain_ms = event_once(lambda: fblock.blind_rotate_streamed(
+            None, ck.bk_fb_sel, bara, *args, stepvec=sv))
+        check(f"{name} B={B}", "blind_rotate_sel", compact, plain_out)
         times = {"blind_rotate_sel": (
             event_ms(lambda: cuda_rotate.blind_rotate_sel_cuda(None, ck.bk_fb_sel, bara, *args,
-                                                               stepvec=sv), 2),
-            event_ms(lambda: fblock.blind_rotate_streamed(None, ck.bk_fb_sel, bara, *args,
-                                                          stepvec=sv), 1))}
+                                                               stepvec=sv), 3), plain_ms)}
+        plan = cuda_rotate.sel_plan(B, args[0], args[1], sms)
+        log(f"rotate plan {name}", f"blind_rotate_sel B={B}: tile {plan.tile.bm} gates x "
+            f"{plan.tile.wq} coefficients, {plan.tiles} tiles a step on a grid of "
+            f"{cuda_rotate.blind_rotate_sel_cuda.grid} blocks ({plan.waves:.2f} rounds, "
+            f"{plan.fill:.3f} busy), {plan.smem_bytes} B shared memory a block; key "
+            f"{ck.bk_fb_sel.numel() / 1e6:.1f} MB {tuple(ck.bk_fb_sel.shape)}")
         if ck.bk_fb is not None:
             check(f"{name} B={B}, expanded vs compact", "blind_rotate",
                   cuda_rotate.blind_rotate_cuda(None, ck.bk_fb, bara, *args, stepvec=sv), compact)
             times["blind_rotate"] = (
                 event_ms(lambda: cuda_rotate.blind_rotate_cuda(None, ck.bk_fb, bara, *args,
-                                                               stepvec=sv), 2),
-                event_ms(lambda: fblock.blind_rotate_fblock(None, ck.bk_fb, bara, *args,
-                                                            stepvec=sv), 1))
+                                                               stepvec=sv), 3),
+                event_once(lambda: fblock.blind_rotate_fblock(None, ck.bk_fb, bara, *args,
+                                                              stepvec=sv))[1])
+        else:  # one gate's latency through the compact kernel
+            one_ms = event_ms(lambda: cuda_rotate.blind_rotate_sel_cuda(
+                None, ck.bk_fb_sel, bara[:1], *args, stepvec=(sv[0], sv[1][:1])), 3)
+            one, one_true = type(ct)(ct.a[:1], ct.b[:1]), type(ct)(ct_true.a[:1], ct_true.b[:1])
+            lat = [sync_time(lambda: gates3gen.mk_gate_and(main_ck, one, one_true))[1]
+                   for _ in range(5)]
+            log(f"rotate time {name}", f"B=1 stepvec, {bara.shape[1]} steps: blind_rotate_sel "
+                f"{one_ms:.3f} ms; p50 mk_gate_and latency B=1 "
+                f"{statistics.median(lat) * 1e3:.2f} ms")
         for kname, (ms, plain_ms) in times.items():
             log(f"rotate time {name}", f"B={B} stepvec, {bara.shape[1]} steps: {kname} "
                 f"{ms:.3f} ms, its plain version {plain_ms:.3f} ms (equal words)")
@@ -507,7 +549,7 @@ def multikey(dev, rng) -> dict:
                 res["bound_ms"][kname] = cuda_rotate.rotate_bound_ms(B, args[0], ck.bk_fb_sel.numel())
         if name in PIPE_BATCH:  # for the pipelined phases: the raw samples and the tables
             res["kept"][name] = (params, sks, dataclasses.replace(ck, bk_fb=None, bk_fb_sel=None))
-        del sks, ck, main_ck, ct, cy, ct_true, out, chain, t, bara, sv, compact
+        del sks, ck, main_ck, ct, cy, ct_true, out, chain, t, bara, sv, compact, plain_out
         torch.cuda.empty_cache()
     return res
 
@@ -563,10 +605,10 @@ def pipelines(rng, kept: dict) -> dict:
         acc = rand_i32(rng, (STAGE_BATCH, 2, N))
         bara_s = rand_i32(rng, (STAGE_BATCH, n), 0, 2 * N)
         last = shards[-1]
+        stage_want, stage_plain = event_once(lambda: plain(acc, last, bara_s, *stage_args))
         check(f"{name} stage B={STAGE_BATCH} acc", kernel,
-              wrapper(acc, last, bara_s, *stage_args), plain(acc, last, bara_s, *stage_args))
+              wrapper(acc, last, bara_s, *stage_args), stage_want)
         stage_ms = event_ms(lambda: wrapper(acc, last, bara_s, *stage_args), 3)
-        stage_plain = event_ms(lambda: plain(acc, last, bara_s, *stage_args), 1)
         log(f"P1 {name}", f"{kernel} == plain, one {n}-step {PIPE_FORM[name]} stage, "
             f"B={STAGE_BATCH}, explicit accumulator; kernel {stage_ms:.3f} ms, plain "
             f"{stage_plain:.3f} ms; sharded key {sum(s.numel() for s in shards) / 1e9:.3f} GB "
@@ -626,12 +668,13 @@ def pipelines(rng, kept: dict) -> dict:
         ref = gates3gen.mk_gate_nand(dataclasses.replace(ck, **form), cx, cy)
         if not (torch.equal(out.a, ref.a) and torch.equal(out.b, ref.b)):
             raise AssertionError(f"{name} pipelined NAND != single-device mk_gate_nand")
-        pipe_ms, single_ms = event_ms(pipelined, 2), event_ms(single, 2)
+        pipe_all = sorted(event_ms(pipelined, 1) for _ in range(PIPE_REPS))
+        pipe_ms, single_ms = statistics.median(pipe_all), event_ms(single, 2)
         log(f"{'P3' if expanded else 'P2'} {name}", f"{PIPE_FORM[name]} key, B={B}, M={M}, "
             f"{parties} stages on {sorted({str(d) for d in mesh.party_devices()})}: pipelined == "
             f"single call == plain stages; NAND decrypts (0 wrong of {B}) == mk_gate_nand; "
             f"{kernel} launched {counts[kernel]}x, {other} 0x; pipelined rotate {pipe_ms:.3f} ms "
-            f"vs single call {single_ms:.3f} ms (ratio {pipe_ms / single_ms:.3f}), plain stages "
+            f"(min {pipe_all[0]:.3f}, max {pipe_all[-1]:.3f} of {PIPE_REPS}) vs single call {single_ms:.3f} ms (ratio {pipe_ms / single_ms:.3f}), plain stages "
             f"{plain_s * 1e3:.1f} ms; pipelined NAND {t_nand:.3f} s = {B / t_nand:.1f} gates/s; "
             f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 

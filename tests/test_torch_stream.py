@@ -7,7 +7,9 @@ On the CPU, ``rotate_streamed`` must take the plain version and count no
 kernel launch. The kernel tests are marked ``cuda`` and skip without a GPU;
 on one, the compact kernel must equal the plain version word for word
 (exact integer arithmetic) in both init modes, at the 3gen digit sets
-(l, Bg) = (2, 2^7), (3, 2^6), (4, 2^4), and equal the expanded-key kernel.
+(l, Bg) = (2, 2^7), (3, 2^6), (4, 2^4), at batches below, ragged against and
+above one gate tile, and equal the expanded-key kernel. The kernel's indexing
+is emulated on the CPU in tests/test_torch_rotate_plan.py.
 """
 
 import numpy as np
@@ -57,6 +59,7 @@ def test_sel_wrapper_rejects_what_the_kernel_does_not_take():
         dict(sel=sel[:, :, :-1]),                      # line length
         dict(sel=sel[..., :-1]),                       # column count
         dict(sel=fblock.expand_fblock_chunk(sel, geom)),  # the expanded key
+        dict(sel=sel.permute(0, 3, 2, 1)),             # neither layout of the lines
         dict(bara=bara.to(torch.int64)),               # bara dtype
         dict(bara=bara[:, :-1]),                       # step count
         dict(acc=acc[:, :1]),                          # acc shape
@@ -97,21 +100,6 @@ def test_both_kernels_reject_sums_beyond_int32(kernel):
           stepvec=(0, torch.zeros(1, dtype=torch.int32)))
 
 
-def test_sel_shared_memory_per_block():
-    """One step's lines (ncols*R*2N) plus per gate C*N*4 accumulator and
-    4*R*(N+4) shifted digit bytes fit the 227 KiB a block may use: 2 gates
-    a block at 8 parties, 4 at 2 and 4 parties."""
-    cap = 227 * 1024
-    for fn, parties, tile in ((P.mktfhe_parameters_2party_3gen, 2, 4),
-                              (P.mktfhe_parameters_4party_3gen, 4, 4),
-                              (P.mktfhe_parameters_8party_3gen, 8, 2)):
-        geom = keys3gen.mk_fb_geometry(fn(), parties)
-        assert cuda_rotate.sel_smem_bytes(tile, geom) <= cap
-        assert tile == cuda_rotate.SEL_MAX_TILE or cuda_rotate.sel_smem_bytes(2 * tile, geom) > cap
-    assert cuda_rotate.sel_smem_bytes(1, keys3gen.mk_fb_geometry(
-        P.mktfhe_parameters_8party_3gen(), 8)) == 131072 + 8192 + 4 * 8 * 1028
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -122,16 +110,21 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("digits", list(DIGITS))
 @pytest.mark.parametrize("N", [64, 256])
-@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("B", [1, 37, 130, 256])
 def test_sel_kernel_equals_plain_version(cuda_device, digits, N, B):
     l, lb = DIGITS[digits]
-    samples, sel, acc, bara, barb, args = _setup(N, l, lb, 13, B, 2, device=cuda_device)
+    samples, lines, acc, bara, barb, args = _setup(N, l, lb, 13, B, 2, device=cuda_device)
+    sel = fblock.to_sel_kernel_layout(lines, args[0])
+    assert torch.equal(sel, fblock.build_sel_key(samples, args[0], cuda_device))
     before = cuda_rotate.blind_rotate_sel_cuda.launches
+    with pytest.raises(ValueError, match="compact kernel layout"):
+        cuda_rotate.blind_rotate_sel_cuda(acc, lines, bara, *args)
     for a, sv in ((acc, None), (None, (-(1 << 29), barb))):
         got = cuda_rotate.blind_rotate_sel_cuda(a, sel, bara, *args, stepvec=sv)
-        want = fblock.blind_rotate_streamed(a, sel, bara, *args, stepvec=sv, chunk=4)
+        want = fblock.blind_rotate_streamed(a, lines, bara, *args, stepvec=sv, chunk=4)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        assert torch.equal(fblock.blind_rotate_streamed(a, sel, bara, *args, stepvec=sv), want)
         fb = fblock.build_rotate_key(samples, args[0], cuda_device)
         assert torch.equal(got, cuda_rotate.blind_rotate_cuda(a, fb, bara, *args, stepvec=sv))
     assert cuda_rotate.blind_rotate_sel_cuda.launches == before + 2

@@ -1,236 +1,117 @@
-// Fused blind rotate (the whole CMux chain) over the COMPACT F-block key, for
-// NVIDIA Hopper (sm_90a).
+// Blind rotate (the whole CMux chain) over the COMPACT F-block key, for NVIDIA
+// Hopper (sm_90a): every CMux step is an int8 tensor-core GEMM spread over all
+// SMs of the card, whose key operand is built on the SM from the key's lines.
 //
 // Replaces the Pallas TPU route torus_fhe_tpu/ops/fblock.py::
 // blind_rotate_streamed(use_pallas=True): XLA expansion of each 64-step chunk
 // of compact lines (expand_fblock_chunk), then the Pallas kernel
 // (pallas_rotate.py:264) on the chunk. It is the 3gen multikey rotate at 4 and
-// 8 parties (mk/boot3gen.py::_fast_rotate_extract). Bit-identical to the plain
-// version torus_fhe_tpu_torch/ops/fblock.py::blind_rotate_streamed and to
-// blind_rotate.cu over the expanded key.
+// 8 parties (mk/boot3gen.py::_fast_rotate_extract) and the stage of the
+// party-pipelined rotate over compact shards (parallel/mk_pipeline.py), in
+// both init modes (explicit accumulator, or the stepvec gate test vector).
+// Word-equal to the plain version torus_fhe_tpu_torch/ops/fblock.py::
+// blind_rotate_streamed and to blind_rotate.cu over the expanded key.
 //
-// The key is sel (steps, R, 2N, ncols) int8, as fblock.build_sel lays it out,
-// read as it is: per step, R extended lines ext_r = [k_r, -k_r] of 2N
-// coefficients, split into ncols byte-limb columns. Entry (u, t) of the
-// expanded F-block matrix of line r, column ci is ext_r[(t - u) mod 2N][ci],
-// so one step's whole key is R*2N*ncols bytes (64 KB at the 2-party 3gen set,
-// 128 KB at 8 parties) against the expanded D*R*bs*ncols*bs (8.4-16.8 MB). No
-// expanded copy exists anywhere.
+// The key is the compact kernel layout (steps, ncols, R, 2N) int8
+// (ops/fblock.to_sel_kernel_layout), a byte-exact permutation of
+// fblock.build_sel's (steps, R, 2N, ncols): per step and limb column ci, the R
+// extended lines ext_r = [k_r, -k_r] reversed, rev[g] = ext_r[(-g) mod 2N].
+// (The second half of a line is read from the key, never made by negating
+// bytes: the negation is in the torus domain, before the limb split.) Entry
+// (digit u, coefficient t) of the expanded matrix of line r, column ci is
+// rev[(u - t) mod 2N], so one step's whole key is R*2N*ncols bytes (128 KB at
+// the 8-party 3gen set) against the expanded D*R*bs*ncols*bs (16.8 MB).
 //
-// What bounds it on this card: int8 multiply-accumulates. Per gate and step,
-// ncols*N outputs each sum R*N products (67 M MACs at 8 parties), on __dp4a.
-// The key crosses from device memory (or L2, shared by the blocks on the
-// same step) once per block and step, ~1% of the step's time. Design:
-//  - one block per tile of BT gates, with its accumulators (C*N uint32 per
-//    gate), four byte-shifted copies of its digit rows and the step's lines in
-//    dynamic shared memory;
-//  - each step the block stages the step's lines reversed and column-major:
-//    key[ci][r][g] = ext_r[(-g) mod 2N][ci];
-//  - the digit rows are stored four times, shifted by j = 0..3 bytes:
-//    dig[j][r][v + 4] = digit_r[v + j], zero outside [0, N). Output t = 4q + j
-//    is then the sum over aligned words v = -4, 0, .., N-4 of
-//    __dp4a(key word at g = v - 4q, dig[j] word at v): every load is an
-//    aligned 4-byte word, and no byte shuffle runs in the inner loop;
-//  - a thread owns KQ = 2 output quads x CG = 4 limb columns x BT gates of
-//    sums; lanes of a warp take consecutive quads, so their key words fall in
-//    distinct banks, and the digit words are one broadcast;
-//  - the shift-add of each sum into acc is a shared-memory atomicAdd (exact
-//    mod 2^32).
+// What bounds it on this card: the int8 tensor-core rate. Per gate and step,
+// ncols*N outputs each sum R*N products (67 M multiply-adds at 8 parties),
+// against a key that is read from device memory once per chain (566 MB at 8
+// parties: 0.17 ms). Measured on an NVIDIA H100 80GB HBM3 at 700.00 W: 257 ms
+// at the 8-party set, B = 256 (bound 75.0 ms; the dp4a kernel this replaces
+// took 1588 ms), 53 ms at B = 1. What holds it below the bound is neither the
+// MMAs nor the key loads alone (without either the step is at most a fifth
+// shorter): eight warps an SM, one block-wide barrier per 128-byte stage, and
+// every fragment on its way through shared memory and registers.
+//
+// What the design does (the body is rotate_gemm.cuh, shared with
+// blind_rotate.cu; this file names the tiles):
+//   * The frame is blind_rotate.cu's: one cooperative launch, a persistent
+//     grid, per step a digit phase and a GEMM phase with a grid barrier after
+//     each, accumulators and digit rows in global memory (L2), output tiles
+//     (gates x one polynomial's limb columns of WQ coefficients) dealt
+//     round-robin, mma.sync.m16n8k32 s8, a cp.async ring, an epilogue without
+//     atomics.
+//   * The key operand of a stage (BK digits u0.. of line r, WQ coefficients
+//     t0..) is a Toeplitz window: row t is the BK bytes rev[u0 - t ..], and
+//     neighbouring rows are the same bytes shifted by one. The stage copies
+//     the BK + WQ bytes rev[u0 - t0 - WQ ..] per limb (whole 16-byte chunks,
+//     each wrapped mod 2N) instead of WQ * BK: 192 bytes against 8 KB at
+//     WQ = 64. The key drops out of the L2-to-SM traffic.
+//   * ldmatrix wants 16-byte aligned rows and row t starts at byte u0 - t, so
+//     the fragments do not go through ldmatrix. While stage c multiplies, the
+//     block makes three more copies of stage c + 1's windows in shared memory,
+//     copy s shifted by s bytes (one funnel shift a word). The MMA's key
+//     fragment of a thread is two words of one coefficient's row: aligned
+//     words of copy (u0 - t) mod 4, read by plain 4-byte loads. The copies lie
+//     8 mod 16 words apart, so the 32 lanes of a load meet no bank conflict.
+//     (Tried beside it, all exact: expanding the window into ldmatrix rows in
+//     shared memory, 1.7x slower; four shifted copies of every line kept in
+//     global memory, as fast, at four times the key.)
+//   * With the key traffic gone, tiles are wide in coefficients (each column
+//     tile reads every digit row once): 64 gates x 64 coefficients where that
+//     fills the card, 128 x 64 above, 64 x 32 below. Small batches leave few
+//     tiles of few warps, so there the block splits the reduction: 64 x 16
+//     with four groups of four warps up to 64 gates or so, 16 x 16 with eight
+//     single warps for B <= 16, each group through a ring of its own
+//     (ops/cuda_rotate.sel_plan picks). A stage must stay inside one line, so
+//     BK divides bs: N = 64 takes one 64 x 16 tile with 64-byte stages.
 // The sums are exact: R*N products of |digit| <= 2^(lb-1) and |limb| <= 128,
 // below 2^31 (checked by the wrapper; 2^23 at 8 parties, 2^25 at 2).
-// Not used yet: the tensor cores (wgmma), TMA, clusters, and overlap of the
-// next step's key load with this step's sums.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rotate_gemm.cuh"
 
-#include "cmux_step.cuh"
-
-#define SEL_MAX_COLS 32
-#define SEL_THREADS 256
-#define KQ 2  // output quads per thread
-#define CG 4  // limb columns per thread
-
-struct SelGeom {
-  int steps, N, C, R, l, lb, ncols;
-  uint32_t offset, mu;
-  int col_poly[SEL_MAX_COLS];
-  int col_shift[SEL_MAX_COLS];
-};
-
-template <int BT>
-__global__ void __launch_bounds__(SEL_THREADS) blind_rotate_sel_kernel(
-    int32_t* __restrict__ out, const int32_t* __restrict__ acc_in,
-    const int32_t* __restrict__ barb, const int32_t* __restrict__ bara,
-    const int8_t* __restrict__ sel, int B, SelGeom g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int N = g.N, C = g.C, R = g.R, ncols = g.ncols;
-  const int CN = C * N, twoN = 2 * N;
-  const int drow = N + 4;          // bytes of one shifted digit row
-  const int dshift = R * drow;     // bytes between two shifts j of one gate
-  const int dgate = 4 * dshift;    // digit bytes per gate
-  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);                    // [BT][C][N]
-  int8_t* dig = reinterpret_cast<int8_t*>(smem + (size_t)BT * CN * 4);  // [BT][4][R][N+4]
-  int8_t* key = dig + (size_t)BT * dgate;                               // [ncols][R][2N]
-  const int gate0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-
-  // initial accumulator; gates past B (the ragged last tile) run on zeros
-  for (int e = tid; e < BT * CN; e += SEL_THREADS) {
-    const int gi = e / CN, gate = gate0 + gi;
-    acc[e] = gate < B ? init_acc_word(acc_in, barb, gate, e - gi * CN, N, C, g.mu) : 0u;
-  }
-  // the digit bytes outside [0, N) of each shifted row stay zero for all steps
-  for (int e = tid; e < BT * dgate / 4; e += SEL_THREADS)
-    reinterpret_cast<uint32_t*>(dig)[e] = 0u;
-  __syncthreads();
-
-  const size_t step_bytes = (size_t)R * twoN * ncols;
-  const int nq = N / 4;                  // output quads per polynomial
-  const int qspan = nq / KQ;             // quads between a thread's KQ quads
-  const int items = (ncols + CG - 1) / CG * qspan;
-  const int wmask = N / 2 - 1;           // key words per line, minus one
-  const uint32_t lmask = (1u << g.lb) - 1u, half = 1u << (g.lb - 1);
-
-  for (int s = 0; s < g.steps; ++s) {
-    // stage the step's lines: key[ci][r][g] = sel[s][r][(-g) mod 2N][ci]
-    const int8_t* ks = sel + (size_t)s * step_bytes;
-    for (int e = tid; e < R * twoN; e += SEL_THREADS) {
-      const int r = e / twoN, f = e - r * twoN;
-      int8_t* dst = key + (size_t)r * twoN + ((twoN - f) & (twoN - 1));
-      const int8_t* src = ks + (size_t)e * ncols;
-      for (int ci = 0; ci < ncols; ++ci) dst[(size_t)ci * R * twoN] = __ldg(src + ci);
-    }
-    // rotate by index, difference, decompose into the four shifted digit rows
-    for (int e = tid; e < BT * CN; e += SEL_THREADS) {
-      const int gi = e / CN, rem = e - gi * CN;
-      const int c = rem / N, t = rem - c * N;
-      const int gate = gate0 + gi;
-      const int a = gate < B ? (bara[(size_t)gate * g.steps + s] & (twoN - 1)) : 0;
-      const uint32_t x = cmux_diff(acc + gi * CN + c * N, t, a, N, g.offset);
-      int8_t* d = dig + (size_t)gi * dgate + c * drow + t + 4;
-      for (int lev = 0; lev < g.l; ++lev) {
-        const int8_t v = gadget_digit(x, 32 - (lev + 1) * g.lb, lmask, half);
-        int8_t* dl = d + lev * C * drow;  // row r = lev*C + c
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dl[j * dshift - j] = v;
-      }
-    }
-    __syncthreads();
-
-    // contract: item = (column group cg, quad q0); the thread's quads are
-    // q0 + k*qspan, its columns cg*CG .. cg*CG + CG-1
-    for (int it = tid; it < items; it += SEL_THREADS) {
-      const int cg = it / qspan, q0 = it - cg * qspan;
-      int sum[BT][KQ][CG][4];
-#pragma unroll
-      for (int gi = 0; gi < BT; ++gi)
-#pragma unroll
-        for (int k = 0; k < KQ; ++k)
-#pragma unroll
-          for (int cc = 0; cc < CG; ++cc)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sum[gi][k][cc][j] = 0;
-      for (int r = 0; r < R; ++r) {
-        const uint32_t* krow[CG];
-#pragma unroll
-        for (int cc = 0; cc < CG; ++cc) {
-          const int ci = min(cg * CG + cc, ncols - 1);  // a ragged group repeats a column
-          krow[cc] = reinterpret_cast<const uint32_t*>(key + ((size_t)ci * R + r) * twoN);
-        }
-        const uint32_t* drp = reinterpret_cast<const uint32_t*>(dig + r * drow);
-#pragma unroll 2
-        for (int vw = 0; vw <= nq; ++vw) {  // word vw holds v = 4*(vw-1) .. +3
-          uint32_t dw[BT][4];
-#pragma unroll
-          for (int gi = 0; gi < BT; ++gi)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) dw[gi][j] = drp[(gi * dgate + j * dshift) / 4 + vw];
-#pragma unroll
-          for (int k = 0; k < KQ; ++k) {
-            const int kw = (vw - 1 - (q0 + k * qspan)) & wmask;
-#pragma unroll
-            for (int cc = 0; cc < CG; ++cc) {
-              const int w = (int)krow[cc][kw];
-#pragma unroll
-              for (int gi = 0; gi < BT; ++gi)
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                  sum[gi][k][cc][j] = __dp4a(w, (int)dw[gi][j], sum[gi][k][cc][j]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int cc = 0; cc < CG; ++cc) {
-        const int ci = cg * CG + cc;
-        if (ci < ncols) {
-          const int shift = g.col_shift[ci];
-          uint32_t* dst = acc + g.col_poly[ci] * N;
-#pragma unroll
-          for (int gi = 0; gi < BT; ++gi)
-#pragma unroll
-            for (int k = 0; k < KQ; ++k)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                atomicAdd(dst + gi * CN + 4 * (q0 + k * qspan) + j,
-                          (uint32_t)sum[gi][k][cc][j] << shift);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < BT * CN; e += SEL_THREADS) {
-    const int gi = e / CN;
-    if (gate0 + gi < B) out[(size_t)(gate0 + gi) * CN + (e - gi * CN)] = (int32_t)acc[e];
-  }
-}
-
-template <int BT>
-static cudaError_t launch_sel(int32_t* out, const int32_t* acc_in, const int32_t* barb,
-                              const int32_t* bara, const int8_t* sel, int B,
-                              const SelGeom& g, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_sel_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (B + BT - 1) / BT;
-  blind_rotate_sel_kernel<BT><<<blocks, SEL_THREADS, smem, stream>>>(out, acc_in, barb, bara,
-                                                                     sel, B, g);
-  return cudaGetLastError();
-}
-
-// acc_in == NULL selects the stepvec mode (barb and mu); otherwise barb is
-// unused. bt is the tile of gates per block, one of 1, 2, 4; its shared
-// memory is bt * (C*N*4 accumulator + 4*R*(N+4) digit) + ncols*R*2N key bytes.
-// Returns the CUDA error of the launch (0 on success).
+// One blind rotate of B gates over `steps` CMux steps: out (B, C, N) int32 is
+// the accumulator in place. acc_in == NULL selects the stepvec mode (barb and
+// mu); otherwise barb is unused. sel is the compact kernel layout (steps,
+// ncols, R, 2N) int8; dig is B*R*N bytes of scratch. config picks the tile
+// (0: 16 gates x 16 coefficients, eight warps splitting the reduction; 1:
+// 64 x 16, four groups of four warps splitting it; 2: 64 x 32; 3: 64 x 64; 4:
+// 128 x 64, all with 128-byte stages, which bs must be a multiple of; 5:
+// 64 x 16 with 64-byte stages, for bs = 64), blocks the grid asked for, which is cut to what is co-resident (at
+// most the tile's RESIDENT blocks per SM) and reported in *grid_used. The limb
+// columns of one polynomial must be consecutive, at most four. Returns the
+// CUDA error of the launch (0 on success).
 extern "C" int blind_rotate_sel_launch(void* out, const void* acc_in, const void* barb,
-                                       const void* bara, const void* sel, int B, int bt,
-                                       int steps, int N, int C, int l, int lb,
-                                       unsigned int offset, unsigned int mu, int ncols,
-                                       const int* col_poly, const int* col_shift,
-                                       void* stream) {
-  if (ncols > SEL_MAX_COLS || N % 8) return (int)cudaErrorInvalidValue;
-  SelGeom g;
-  g.steps = steps; g.N = N; g.C = C; g.R = l * C; g.l = l; g.lb = lb; g.ncols = ncols;
-  g.offset = offset; g.mu = mu;
-  for (int i = 0; i < SEL_MAX_COLS; ++i) {
-    g.col_poly[i] = i < ncols ? col_poly[i] : 0;
-    g.col_shift[i] = i < ncols ? col_shift[i] : 0;
-  }
-  const size_t smem = (size_t)bt * (C * N * 4 + 4 * g.R * (N + 4)) + (size_t)ncols * g.R * 2 * N;
-  auto o = static_cast<int32_t*>(out);
+                                       const void* bara, const void* sel, void* dig, int B,
+                                       int config, int blocks, int steps, int N, int bs, int C,
+                                       int l, int lb, unsigned int offset, unsigned int mu,
+                                       int ncols, const int* col_poly, const int* col_shift,
+                                       void* stream, int* grid_used) {
+  if (blocks < 1 || bs % 64) return (int)cudaErrorInvalidValue;
+  if (config < 0 || config > 5 || (config < 5 && bs % 128)) return (int)cudaErrorInvalidValue;
+  Geom g;
+  if (!fill_geom(g, B, steps, N, bs, C, l, lb, offset, mu, ncols, col_poly, col_shift))
+    return (int)cudaErrorInvalidValue;
+  auto o = static_cast<uint32_t*>(out);
   auto ai = static_cast<const int32_t*>(acc_in);
   auto bb = static_cast<const int32_t*>(barb);
   auto ba = static_cast<const int32_t*>(bara);
-  auto sp = static_cast<const int8_t*>(sel);
+  auto k = static_cast<const int8_t*>(sel);
+  auto d = static_cast<int8_t*>(dig);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (bt) {
-    case 1: err = launch_sel<1>(o, ai, bb, ba, sp, B, g, smem, st); break;
-    case 2: err = launch_sel<2>(o, ai, bb, ba, sp, B, g, smem, st); break;
-    case 4: err = launch_sel<4>(o, ai, bb, ba, sp, B, g, smem, st); break;
-    default: err = cudaErrorInvalidValue;
+  // Tile<COMPACT, WARPS_M, WARPS_N, WM, WNQ, STAGES, RESIDENT, BK[, KSPLIT]>
+  using T0 = Tile<true, 1, 1, 1, 2, 4, 1, 128, 8>;
+  using T1 = Tile<true, 4, 1, 1, 2, 4, 1, 128, 4>;
+  using T2 = Tile<true, 2, 2, 2, 2, 4, 3, 128>;
+  using T3 = Tile<true, 2, 4, 2, 2, 4, 1, 128>;
+  using T4 = Tile<true, 2, 4, 4, 2, 4, 1, 128>;
+  using T5 = Tile<true, 4, 1, 1, 2, 4, 3, 64>;
+  switch (config) {
+    case 0: return (int)launch<T0>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 1: return (int)launch<T1>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 2: return (int)launch<T2>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 3: return (int)launch<T3>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 4: return (int)launch<T4>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 5: return (int)launch<T5>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)err;
 }

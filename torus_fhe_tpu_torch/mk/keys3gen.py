@@ -124,8 +124,10 @@ class MKCloudKey:
     ``bk_fb``: the hi-word rounded key as an expanded 32-bit F-block key,
     int8: the kernel layout (parties*n, D, 8*bs, R*bs) on a CUDA device,
     (parties*n, D*R*bs, 8*bs) on the CPU (``fblock.build_rotate_key``). ``bk_fb_sel``: the same rounded key as
-    compact lines (parties*n, R, 2N, 8) int8 (``fblock.build_sel`` layout;
-    the compact kernel reads it as it is). ``bk_samples``: the raw 64-bit
+    compact lines, int8 (``fblock.build_sel_key``): the compact kernel
+    layout (parties*n, 8, R, 2N) on a CUDA device, which
+    csrc/blind_rotate_sel.cu reads, ``fblock.build_sel``'s
+    (parties*n, R, 2N, 8) on the CPU. ``bk_samples``: the raw 64-bit
     TGSW samples (parties*n, l, 2, 2, N) on the host, with ``keep_samples``.
     ``ks_mat``: (K, parties*(n+1)*4) int8 limb tables, zero columns up to a
     multiple of 8 (torch._int_mm).
@@ -220,8 +222,7 @@ def cloud_key_from_samples(params: SchemeParams3Gen, samples: np.ndarray,
         pad_table(ks_mat).to(device), parties, params,
         bk_fb=fblock.build_rotate_key(hi, geom, device) if "fblock" in forms else None,
         bk_samples=torch.from_numpy(samples) if keep_samples else None,
-        bk_fb_sel=(torch.from_numpy(fblock.build_sel(hi, geom)).to(device)
-                   if "fbstream" in forms else None))
+        bk_fb_sel=fblock.build_sel_key(hi, geom, device) if "fbstream" in forms else None)
 
 
 def mk_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[MKSecretKey],

@@ -9,8 +9,15 @@ step is an int8 tensor-core GEMM over the whole card; ``rotate_plan`` is its
 launch plan (tile shape, padded batch, tiles per wave, scratch and shared
 memory), computed here so that the CPU tests reach it.
 ``blind_rotate_sel_cuda`` launches csrc/blind_rotate_sel.cu over the compact
-key lines (ops/fblock.build_sel): it replaces the Pallas route of
-torus_fhe_tpu/ops/fblock.py::blind_rotate_streamed, in the same two modes.
+key lines in the compact kernel layout (ops/fblock.to_sel_kernel_layout): it
+replaces the Pallas route of torus_fhe_tpu/ops/fblock.py::
+blind_rotate_streamed (XLA expansion of 64-step chunks, then the Pallas
+kernel), in the same two modes. It is the same chain of tensor-core GEMMs
+(both sources include csrc/rotate_gemm.cuh) and expands nothing: a GEMM
+tile's key operand is a window of one reversed line, BK + WQ bytes a limb,
+from which the SM makes the MMA fragments itself. The int8 tensor-core rate
+bounds it; ``sel_plan`` is its launch plan, with tiles wide in coefficients,
+because each column tile reads every digit row from L2 once.
 ``rotate`` and ``rotate_streamed`` are what the bootstraps call: CUDA tensors
 go to the kernel, CPU tensors to the plain version (ops/fblock
 ``blind_rotate_fblock`` and ``blind_rotate_streamed``). There is no fallback:
@@ -41,27 +48,38 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"blind_rotate": os.path.join(CSRC, "blind_rotate.cu"),
            "blind_rotate_sel": os.path.join(CSRC, "blind_rotate_sel.cu")}
-HEADERS = [os.path.join(CSRC, "cmux_step.cuh")]
+HEADERS = [os.path.join(CSRC, "rotate_gemm.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SEL_MAX_TILE = 4  # gates per block of blind_rotate_sel.cu: tiles 1, 2, 4
 MAX_COLS = 32
-MAX_LIMBS = 4  # limb columns of one polynomial that a tile of blind_rotate.cu holds
+MAX_LIMBS = 4  # limb columns of one polynomial that a GEMM tile holds
 # what an H100 SM holds at once (CUDA occupancy rules): shared memory (each
 # block is charged 1 KiB on top of its own), threads, blocks
 SM_SHARED_BYTES, BLOCK_SHARED_OVERHEAD = 228 * 1024, 1024
 SM_MAX_THREADS, SM_MAX_BLOCKS = 2048, 32
 
 
+def window_stride(nbytes: int) -> int:
+    """Words between two byte-shifted copies of a compact window of
+    ``nbytes`` bytes (rotate_gemm.cuh): room for the window, and 8 mod 16, so
+    that the four copies start eight shared-memory banks apart."""
+    w = nbytes // 4
+    while w % 16 != 8:
+        w += 1
+    return w
+
+
 class TileConfig(NamedTuple):
-    """One instantiation of blind_rotate.cu: a block computes ``bm`` gates x
-    the limb columns of one polynomial for ``wq`` coefficients, through
-    ``stages`` cp.async stages of ``bk`` reduction bytes, on ``threads``
-    threads; at most ``resident`` blocks of the grid share an SM (the
-    kernel's __launch_bounds__ give it the registers for that many). With
-    ``ksplit`` > 1 the block's warps split the tile's reduction, each through
-    a ring of its own."""
+    """One instantiation of the kernel (rotate_gemm.cuh): a block computes
+    ``bm`` gates x the limb columns of one polynomial for ``wq``
+    coefficients, through ``stages`` cp.async stages of ``bk`` reduction
+    bytes, on ``threads`` threads; at most ``resident`` blocks of the grid
+    share an SM (the kernel's __launch_bounds__ give it the registers for
+    that many). With ``ksplit`` > 1 the block's warps split the tile's
+    reduction, each through a ring of its own. ``compact``: the key side of
+    a stage is a window of the compact lines (blind_rotate_sel.cu), not rows
+    of the expanded key (blind_rotate.cu)."""
 
     bm: int
     wq: int
@@ -70,12 +88,16 @@ class TileConfig(NamedTuple):
     resident: int
     bk: int
     ksplit: int = 1
+    compact: bool = False
 
     @property
     def smem_bytes(self) -> int:
-        """The rings: per stage ``bk`` bytes of ``bm`` digit rows and of
-        MAX_LIMBS * ``wq`` key rows."""
-        return self.ksplit * self.stages * (self.bm + MAX_LIMBS * self.wq) * self.bk
+        """The rings: per stage ``bk`` bytes of ``bm`` digit rows and, of the
+        key, MAX_LIMBS * ``wq`` rows of ``bk`` bytes, or (compact) per limb
+        four shifted copies of the ``bk + wq``-byte window."""
+        key = (MAX_LIMBS * 4 * window_stride(self.bk + self.wq) * 4 if self.compact
+               else MAX_LIMBS * self.wq * self.bk)
+        return self.ksplit * self.stages * (self.bm * self.bk + key)
 
 
 # indexed by the ``config`` argument of blind_rotate_launch: four tile shapes
@@ -85,6 +107,17 @@ ROTATE_CONFIGS = (TileConfig(16, 8, 3, 128, 3, 128, 4), TileConfig(64, 16, 3, 12
                   TileConfig(128, 32, 4, 256, 1, 128), TileConfig(256, 32, 3, 256, 1, 128),
                   TileConfig(64, 16, 4, 128, 3, 64))
 NARROW_CONFIG = 4
+# indexed by the ``config`` argument of blind_rotate_sel_launch: the tiles of
+# the compact kernel, wide in coefficients (the key side of a stage is a
+# window of bk + wq bytes, so what a tile draws from L2 is its digit rows),
+# and the one with 64-byte stages for bs = 64 (a stage stays inside one line)
+SEL_CONFIGS = (TileConfig(16, 16, 4, 256, 1, 128, 8, True),
+               TileConfig(64, 16, 4, 512, 1, 128, 4, True),
+               TileConfig(64, 32, 4, 128, 3, 128, 1, True),
+               TileConfig(64, 64, 4, 256, 1, 128, 1, True),
+               TileConfig(128, 64, 4, 256, 1, 128, 1, True),
+               TileConfig(64, 16, 4, 128, 3, 64, 1, True))
+SEL_NARROW_CONFIG = 5
 # peak rates of an H100 SXM that the bounds are taken against: dense int8
 # tensor-core operations, and device-memory bytes
 INT8_OPS_PER_S = 1979e12
@@ -92,9 +125,10 @@ BYTES_PER_S = 3.35e12
 
 
 class RotatePlan(NamedTuple):
-    """Launch plan of blind_rotate.cu for one call (``rotate_plan``)."""
+    """Launch plan of one call of blind_rotate.cu (``rotate_plan``) or of
+    blind_rotate_sel.cu (``sel_plan``)."""
 
-    config: int        # index into ROTATE_CONFIGS
+    config: int        # index into ROTATE_CONFIGS or SEL_CONFIGS
     tile: TileConfig
     m_tiles: int       # gate tiles: ceil(B / bm)
     padded_m: int      # m_tiles * bm; rows past B are zero-filled and never stored
@@ -158,14 +192,9 @@ def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[name][0])
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     ip = ctypes.POINTER(ctypes.c_int)
-    if name == "blind_rotate":
-        lib.blind_rotate_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
-                                            u, u, i, ip, ip, vp, ip]
-        lib.blind_rotate_launch.restype = ctypes.c_int
-    else:
-        lib.blind_rotate_sel_launch.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
-                                                u, u, i, ip, ip, vp]
-        lib.blind_rotate_sel_launch.restype = ctypes.c_int
+    launch = getattr(lib, f"{name}_launch")  # the two launchers take the same arguments
+    launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, i, ip, ip, vp, ip]
+    launch.restype = ctypes.c_int
     return lib
 
 
@@ -177,7 +206,7 @@ def _col_arrays(geom: FBlockGeometry):
 
 def poly_groups(geom: FBlockGeometry) -> list:
     """Per polynomial c of the accumulator, (first limb column, number of
-    limb columns). blind_rotate.cu gives one thread every limb of its
+    limb columns). The kernels give one thread every limb of its
     coefficients, so a polynomial's columns must be consecutive and at most
     MAX_LIMBS, and every polynomial must have one."""
     groups = [[None, 0] for _ in range(geom.C)]
@@ -221,33 +250,75 @@ def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
     if B * geom.C * geom.N >= 2**31:
         raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
 
-    def count(cfg):
-        m_tiles = -(-B // cfg.bm)
-        return m_tiles, geom.nb * geom.C * (geom.bs // cfg.wq)
-
-    def fill(tiles):
-        return tiles / (-(-tiles // sm_count) * sm_count) if tiles > sm_count else 1.0
-
     small, mid, big, huge = 0, 1, 2, 3
     if rbs % ROTATE_CONFIGS[small].bk:
         config = NARROW_CONFIG
     elif B <= ROTATE_CONFIGS[small].bm:
         config = small
     else:
-        m_big, n_big = count(ROTATE_CONFIGS[big])
-        m_huge, _ = count(ROTATE_CONFIGS[huge])
+        m_big, n_big = _tile_counts(ROTATE_CONFIGS[big], B, geom)
+        m_huge, _ = _tile_counts(ROTATE_CONFIGS[huge], B, geom)
         config = big if 4 * m_big * n_big >= 3 * sm_count else mid
         if m_huge * 2 == m_big and m_huge * n_big >= sm_count and \
-                fill(m_huge * n_big) >= fill(m_big * n_big):
+                _fill(m_huge * n_big, sm_count) >= _fill(m_big * n_big, sm_count):
             config = huge
-    cfg = ROTATE_CONFIGS[config]
-    m_tiles, n_tiles = count(cfg)
+    return _plan(config, ROTATE_CONFIGS[config], B, geom, sm_count)
+
+
+def _tile_counts(cfg: TileConfig, B: int, geom: FBlockGeometry) -> tuple:
+    """(gate tiles, column tiles a step) of ``B`` gates under ``cfg``."""
+    return -(-B // cfg.bm), geom.nb * geom.C * (geom.bs // cfg.wq)
+
+
+def _fill(tiles: int, sm_count: int) -> float:
+    return tiles / (-(-tiles // sm_count) * sm_count) if tiles > sm_count else 1.0
+
+
+def _plan(config: int, cfg: TileConfig, B: int, geom: FBlockGeometry,
+          sm_count: int) -> RotatePlan:
+    m_tiles, n_tiles = _tile_counts(cfg, B, geom)
     tiles = m_tiles * n_tiles
     per_sm = min(SM_SHARED_BYTES // (cfg.smem_bytes + BLOCK_SHARED_OVERHEAD),
                  SM_MAX_THREADS // cfg.threads, SM_MAX_BLOCKS, cfg.resident)
     blocks = min(tiles, per_sm * sm_count)
     return RotatePlan(config, cfg, m_tiles, m_tiles * cfg.bm, n_tiles, tiles, blocks,
-                      tiles / sm_count, fill(tiles), cfg.smem_bytes, B * geom.R * geom.N)
+                      tiles / sm_count, _fill(tiles, sm_count), cfg.smem_bytes,
+                      B * geom.R * geom.N)
+
+
+def sel_plan(B: int, geom: FBlockGeometry, decomp_length: int, sm_count: int) -> RotatePlan:
+    """How blind_rotate_sel.cu runs ``B`` gates on a card of ``sm_count`` SMs.
+
+    The key side of a tile is a few hundred bytes a stage, so what a tile
+    draws from L2 is its digit rows, once per column tile: the widest tile
+    in coefficients wins where it fills the card. Up to 16 gates: 16 x 16,
+    eight warps splitting the reduction (one gate's columns spread over every
+    SM). Above: the first of 128 gates x 64 coefficients, 64 x 64, 64 x 32
+    that gives at least three quarters of the SMs a tile, else 64 x 16 with
+    four groups of four warps splitting the reduction. A stage stays inside
+    one line, so a geometry whose bs is no multiple of the 128-byte stages
+    (N = 64) takes the one 64 x 16 tile with 64-byte stages at every B. The
+    grid is cut as in ``rotate_plan``."""
+    if B < 1:
+        raise ValueError(f"a launch needs at least one gate, got {B}")
+    if geom.R != decomp_length * geom.C or geom.bs % 64 or geom.N % geom.bs:
+        raise ValueError(f"blind_rotate_sel.cu takes bs a multiple of 64: {geom}")
+    poly_groups(geom)
+    if B * geom.C * geom.N >= 2**31:
+        raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
+    small, mid = 0, 1
+    if geom.bs % SEL_CONFIGS[small].bk:
+        config = SEL_NARROW_CONFIG
+    elif B <= SEL_CONFIGS[small].bm:
+        config = small
+    else:
+        config = mid
+        for wide in (4, 3, 2):
+            m_tiles, n_tiles = _tile_counts(SEL_CONFIGS[wide], B, geom)
+            if 4 * m_tiles * n_tiles >= 3 * sm_count:
+                config = wide
+                break
+    return _plan(config, SEL_CONFIGS[config], B, geom, sm_count)
 
 
 def rotate_bound_ms(B: int, geom: FBlockGeometry, key_bytes: int) -> tuple:
@@ -260,31 +331,6 @@ def rotate_bound_ms(B: int, geom: FBlockGeometry, key_bytes: int) -> tuple:
     moved = key_bytes + B * geom.n * 4 + 2 * B * geom.C * geom.N * 4
     bytes_ms = moved / BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def sel_smem_bytes(bt: int, geom: FBlockGeometry) -> int:
-    """Dynamic shared memory of a block of blind_rotate_sel.cu with ``bt``
-    gates: the accumulators (C*N int32 each), four shifted copies of the
-    digit rows (4*R*(N+4) int8 each), and one step's lines (ncols*R*2N)."""
-    return bt * (geom.C * geom.N * 4 + 4 * geom.R * (geom.N + 4)) + \
-        len(geom.cols) * geom.R * 2 * geom.N
-
-
-def _pick_tile(B: int, max_tile: int, nbytes, device) -> int:
-    """Gates per block: enough blocks to give every SM one, at most
-    ``max_tile``, and within the shared memory a block may opt in to."""
-    props = torch.cuda.get_device_properties(device)
-    cap = getattr(props, "shared_memory_per_block_optin", 227 * 1024)
-    want = -(-B // props.multi_processor_count)
-    bt = 1
-    while bt < max_tile and bt < want:
-        bt *= 2
-    while bt > 1 and nbytes(bt) > cap:
-        bt //= 2
-    if nbytes(bt) > cap:
-        raise ValueError(f"one gate needs {nbytes(1)} B of shared memory, above the "
-                         f"{cap} B a block may use")
-    return bt
 
 
 def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
@@ -338,12 +384,12 @@ def check_args(acc_a, fb, bara, geom: FBlockGeometry, decomp_length: int,
 
 def check_sel_args(acc_a, sel, bara, geom: FBlockGeometry, decomp_length: int,
                    log2_base: int, stepvec=None) -> None:
-    """The same for blind_rotate_sel.cu, whose key is the compact lines
-    (steps, R, 2N, ncols) int8."""
+    """The same for blind_rotate_sel.cu and its plain version, whose key is
+    the compact lines, int8: (steps, R, 2N, ncols) as ``build_sel`` lays
+    them out, or the compact kernel layout (steps, ncols, R, 2N)."""
     _check_chain(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec,
-                 ((geom.R, 2 * geom.N, len(geom.cols)),), "sel")
-    if geom.N % 8:
-        raise ValueError(f"the compact kernel takes N a multiple of 8, not {geom.N}")
+                 ((geom.R, 2 * geom.N, len(geom.cols)),
+                  fblock.sel_kernel_layout_shape(geom)), "sel")
 
 
 def _launch_args(acc_a, key, bara, stepvec):
@@ -358,6 +404,32 @@ def _launch_args(acc_a, key, bara, stepvec):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _launch(name: str, plan: RotatePlan, acc_a, key, bara, geom: FBlockGeometry,
+            decomp_length: int, log2_base: int, offset: int, stepvec) -> tuple:
+    """One cooperative launch of library ``name`` under ``plan`` on the
+    current stream of the key's device. Allocates the output, which is the
+    kernel's accumulator, and the digit scratch. Returns (out, grid used)."""
+    B = bara.shape[0]
+    out = torch.empty((B, geom.C, geom.N), dtype=torch.int32, device=key.device)
+    key, bara, acc_a, barb, mu = _launch_args(acc_a, key, bara, stepvec)
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(key.device):
+        dig = torch.empty(plan.scratch_bytes, dtype=torch.int8, device=key.device)
+        err = getattr(_library(name), f"{name}_launch")(
+            out.data_ptr(), _ptr(acc_a), _ptr(barb), bara.data_ptr(), key.data_ptr(),
+            dig.data_ptr(), B, plan.config, plan.blocks, key.shape[0], geom.N, geom.bs, geom.C,
+            decomp_length, log2_base, offset & 0xFFFFFFFF, mu, len(geom.cols),
+            *_col_arrays(geom), torch.cuda.current_stream(key.device).cuda_stream,
+            ctypes.byref(grid))
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out, grid.value
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
@@ -383,25 +455,12 @@ def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
                          "build the key on the card (fblock.build_rotate_key) or convert it "
                          "once (fblock.to_kernel_layout)")
     B = bara.shape[0]
-    out = torch.empty((B, geom.C, geom.N), dtype=torch.int32, device=key.device)
     if B == 0:
-        return out
-    plan = rotate_plan(B, geom, decomp_length,
-                       torch.cuda.get_device_properties(key.device).multi_processor_count)
-    key, bara, acc_a, barb, mu = _launch_args(acc_a, key, bara, stepvec)
-    grid = ctypes.c_int(0)
-    with torch.cuda.device(key.device):
-        dig = torch.empty(plan.scratch_bytes, dtype=torch.int8, device=key.device)
-        err = _library("blind_rotate").blind_rotate_launch(
-            out.data_ptr(), _ptr(acc_a), _ptr(barb), bara.data_ptr(), key.data_ptr(),
-            dig.data_ptr(), B, plan.config, plan.blocks, key.shape[0], geom.N, geom.bs, geom.C,
-            decomp_length, log2_base, offset & 0xFFFFFFFF, mu, len(geom.cols),
-            *_col_arrays(geom), torch.cuda.current_stream(key.device).cuda_stream,
-            ctypes.byref(grid))
-    if err:
-        raise RuntimeError(f"blind_rotate kernel launch failed: CUDA error {err}")
+        return torch.empty((0, geom.C, geom.N), dtype=torch.int32, device=key.device)
+    plan = rotate_plan(B, geom, decomp_length, _sm_count(key.device))
+    out, blind_rotate_cuda.grid = _launch("blind_rotate", plan, acc_a, key, bara, geom,
+                                          decomp_length, log2_base, offset, stepvec)
     blind_rotate_cuda.launches += 1
-    blind_rotate_cuda.grid = grid.value
     return out
 
 
@@ -412,34 +471,38 @@ blind_rotate_cuda.grid = 0
 def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
                           geom: FBlockGeometry, decomp_length: int, log2_base: int,
                           offset: int, stepvec=None) -> torch.Tensor:
-    """The whole CMux chain over the compact key on the card, one launch.
+    """The whole CMux chain over the compact key on the card: one
+    cooperative launch, whose persistent grid runs every step as a
+    tensor-core GEMM with the key operand made on the SM from the lines
+    (``sel_plan``). No expanded key is allocated.
 
-    sel: (steps, R, 2N, ncols) int8, the ``fblock.build_sel`` layout, read as
-    it is; acc_a, stepvec, bara as for ``blind_rotate_cuda``, over ``steps``.
-    Returns (B, C, N) int32, word-equal to ``fblock.blind_rotate_streamed``.
-    ``blind_rotate_sel_cuda.launches`` counts the launches.
+    sel: the compact kernel layout (steps, ncols, R, 2N) int8
+    (``fblock.build_sel_key`` / ``to_sel_kernel_layout``); acc_a, stepvec,
+    bara as for ``blind_rotate_cuda``, over ``steps``. All CUDA tensors.
+    Returns (B, C, N) int32, word-equal to ``fblock.blind_rotate_streamed``;
+    allocation and stream as for ``blind_rotate_cuda``.
+    ``blind_rotate_sel_cuda.launches`` counts the launches,
+    ``blind_rotate_sel_cuda.grid`` is the last launch's grid.
     """
     check_sel_args(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec)
     if sel.device.type != "cuda":
         raise ValueError(f"blind_rotate_sel_cuda takes CUDA tensors, got {sel.device}")
+    if tuple(sel.shape[1:]) != fblock.sel_kernel_layout_shape(geom):
+        raise ValueError("blind_rotate_sel_cuda reads the compact kernel layout (steps, ncols, "
+                         "R, 2N): build the key on the card (fblock.build_sel_key) or convert "
+                         "it once (fblock.to_sel_kernel_layout)")
     B = bara.shape[0]
-    out = torch.empty((B, geom.C, geom.N), dtype=torch.int32, device=sel.device)
     if B == 0:
-        return out
-    sel, bara, acc_a, barb, mu = _launch_args(acc_a, sel, bara, stepvec)
-    bt = _pick_tile(B, SEL_MAX_TILE, lambda t: sel_smem_bytes(t, geom), sel.device)
-    err = _library("blind_rotate_sel").blind_rotate_sel_launch(
-        out.data_ptr(), _ptr(acc_a), _ptr(barb), bara.data_ptr(), sel.data_ptr(),
-        B, bt, sel.shape[0], geom.N, geom.C, decomp_length, log2_base,
-        offset & 0xFFFFFFFF, mu, len(geom.cols), *_col_arrays(geom),
-        torch.cuda.current_stream(sel.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"blind_rotate_sel kernel launch failed: CUDA error {err}")
+        return torch.empty((0, geom.C, geom.N), dtype=torch.int32, device=sel.device)
+    plan = sel_plan(B, geom, decomp_length, _sm_count(sel.device))
+    out, blind_rotate_sel_cuda.grid = _launch("blind_rotate_sel", plan, acc_a, sel, bara, geom,
+                                              decomp_length, log2_base, offset, stepvec)
     blind_rotate_sel_cuda.launches += 1
     return out
 
 
 blind_rotate_sel_cuda.launches = 0
+blind_rotate_sel_cuda.grid = 0
 
 
 def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
@@ -462,8 +525,9 @@ def rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor, geom: FBlockGe
                     decomp_length: int, log2_base: int, offset: int,
                     stepvec=None) -> torch.Tensor:
     """Blind rotate over the compact key on the tensors' device: the
-    compact-key kernel for CUDA tensors, the plain ``blind_rotate_streamed``
-    for CPU tensors; anything else raises."""
+    compact-key kernel for CUDA tensors (the key in the compact kernel
+    layout), the plain ``blind_rotate_streamed`` for CPU tensors (either
+    layout); anything else raises."""
     if sel.device.type == "cuda":
         return blind_rotate_sel_cuda(acc_a, sel, bara, geom, decomp_length, log2_base,
                                      offset, stepvec)

@@ -20,7 +20,14 @@ Python loop over the n steps that runs on CPU and CUDA tensors alike, over
 either layout.
 ``blind_rotate_streamed`` runs the same chain from the compact lines
 (``build_sel``), expanded chunk by chunk (``expand_fblock_chunk``): the plain
-version of the compact-key kernel.
+version of the compact-key kernel (ops/cuda_rotate.blind_rotate_sel_cuda,
+csrc/blind_rotate_sel.cu). That kernel expands nothing: a GEMM tile's key
+operand is a window of one reversed line, so it reads the lines in the COMPACT
+KERNEL LAYOUT (steps, ncols, R, 2N), limb-major and each line reversed
+(``to_sel_kernel_layout``), a byte-exact permutation of ``build_sel``'s
+(steps, R, 2N, ncols) of the same size. ``build_sel_key`` makes the kernel
+layout on a CUDA device and ``build_sel``'s elsewhere; the plain version
+reads both.
 """
 
 from __future__ import annotations
@@ -96,15 +103,34 @@ def build_sel(samples: np.ndarray, geom: FBlockGeometry) -> np.ndarray:
     int8. The lines are negated in the torus domain BEFORE the limb split:
     an int8 limb cannot hold +128, so negating limbs would be wrong.
     """
+    limbs = _extended_line_limbs(samples, geom)
+    sel = np.stack([limbs[:, :, p, :, s // 8] for p, s in geom.cols], axis=-1)
+    return np.ascontiguousarray(sel)
+
+
+def _extended_line_limbs(samples: np.ndarray, geom: FBlockGeometry,
+                         reverse: bool = False) -> np.ndarray:
+    """The extended lines [k, -k] of raw samples (n, l, C, C, N), negated in
+    the torus domain and then split into byte limbs: (n, R, C, 2N, nl) int8.
+    ``reverse``: each line reversed, ext[(-g) mod 2N] at position g."""
     n, l, C, C2, N = samples.shape
     if (C, N, l * C) != (geom.C, geom.N, geom.R) or C != C2:
         raise ValueError(f"samples {samples.shape} do not match {geom}")
     kern = np.ascontiguousarray(samples.reshape(n, geom.R, C, N))
     with np.errstate(over="ignore"):
         ext = np.concatenate([kern, -kern], axis=-1)  # wraps mod 2^bits
-    limbs = poly.limb_split_signed_host(ext, geom.bits)  # (n, R, C, 2N, nl)
-    sel = np.stack([limbs[:, :, p, :, s // 8] for p, s in geom.cols], axis=-1)
-    return np.ascontiguousarray(sel)
+    if reverse:  # position 0 stays, the rest runs backwards
+        ext = np.concatenate([ext[..., :1], ext[..., :0:-1]], axis=-1)
+    return poly.limb_split_signed_host(ext, geom.bits)
+
+
+def build_sel_kernel_layout(samples: np.ndarray, geom: FBlockGeometry) -> np.ndarray:
+    """``build_sel`` straight into the compact kernel layout (n, ncols, R, 2N)
+    on the host: limb-major, each line reversed. Byte-equal to
+    ``to_sel_kernel_layout(build_sel(samples))``."""
+    limbs = _extended_line_limbs(samples, geom, reverse=True)
+    return np.ascontiguousarray(
+        np.stack([limbs[:, :, p, :, s // 8] for p, s in geom.cols], axis=1))
 
 
 def expand_fblock_chunk(sel_chunk: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
@@ -207,6 +233,53 @@ def build_rotate_key(samples: np.ndarray, geom: FBlockGeometry, device,
     return key
 
 
+def sel_kernel_layout_shape(geom: FBlockGeometry) -> tuple:
+    """Shape of one step of the compact kernel layout: (ncols, R, 2N)."""
+    return (len(geom.cols), geom.R, 2 * geom.N)
+
+
+def _reversed_line_index(geom: FBlockGeometry, device) -> torch.Tensor:
+    """g -> (-g) mod 2N, an involution."""
+    return torch.as_tensor((-np.arange(2 * geom.N)) % (2 * geom.N), device=device)
+
+
+def to_sel_kernel_layout(sel: torch.Tensor, geom: FBlockGeometry,
+                         chunk: int = 64) -> torch.Tensor:
+    """The compact lines (steps, R, 2N, ncols) in the compact kernel layout
+    (steps, ncols, R, 2N): kernel[s, ci, r, g] = sel[s, r, (-g) mod 2N, ci],
+    a byte-exact permutation (limb-major, each line reversed), ``chunk``
+    steps at a time. Both halves of a line are carried over as they are: the
+    second is the torus negation of the first, which no byte negation gives."""
+    steps = sel.shape[0]
+    ncols, R, two_n = sel_kernel_layout_shape(geom)
+    if tuple(sel.shape[1:]) != (R, two_n, ncols):
+        raise ValueError(f"lines {tuple(sel.shape)} do not match {geom}")
+    idx = _reversed_line_index(geom, sel.device)
+    out = torch.empty((steps, ncols, R, two_n), dtype=sel.dtype, device=sel.device)
+    for s0 in range(0, steps, chunk):
+        out[s0:s0 + chunk] = sel[s0:s0 + chunk].index_select(2, idx).permute(0, 3, 1, 2)
+    return out
+
+
+def from_sel_kernel_layout(key: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
+    """The inverse of ``to_sel_kernel_layout``: (steps, R, 2N, ncols)."""
+    if tuple(key.shape[1:]) != sel_kernel_layout_shape(geom):
+        raise ValueError(f"key {tuple(key.shape)} does not match {geom}")
+    idx = _reversed_line_index(geom, key.device)
+    return key.index_select(3, idx).permute(0, 2, 3, 1).contiguous()
+
+
+def build_sel_key(samples: np.ndarray, geom: FBlockGeometry, device) -> torch.Tensor:
+    """The compact key of raw TGSW samples (n, l, C, C, N) in the form the
+    compact blind rotate of ``device`` reads: the compact kernel layout
+    (n, ncols, R, 2N) on a CUDA device, where csrc/blind_rotate_sel.cu runs,
+    and ``build_sel``'s (n, R, 2N, ncols) elsewhere. One copy of the key
+    either way, laid out on the host, so the card holds nothing besides it."""
+    device = torch.device(device)
+    build = build_sel_kernel_layout if device.type == "cuda" else build_sel
+    return torch.from_numpy(build(samples, geom)).to(device)
+
+
 def contract_rows_fblock(d8: torch.Tensor, fstep: torch.Tensor,
                          geom: FBlockGeometry) -> torch.Tensor:
     """Contract int8 digit rows against one expanded F-block step.
@@ -291,7 +364,9 @@ def blind_rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor,
     chunk: the plain version of the compact-key kernel
     (ops/cuda_rotate.blind_rotate_sel_cuda).
 
-    sel: (steps, R, 2N, ncols) int8 (``build_sel``); bara: (B, steps) int32;
+    sel: (steps, R, 2N, ncols) int8 (``build_sel``), or the compact kernel
+    layout (steps, ncols, R, 2N), which is turned back chunk by chunk; bara:
+    (B, steps) int32;
     acc_a: (B, C, N) int32, or None with ``stepvec=(mu, barb)``. The steps
     are padded to a multiple of ``chunk`` with identity steps (zero lines,
     bara = 0), and each chunk's expansion goes through
@@ -304,8 +379,11 @@ def blind_rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor,
         sel = torch.cat([sel, sel.new_zeros((spad,) + tuple(sel.shape[1:]))])
         bara = torch.cat([bara, bara.new_zeros((B, spad))], dim=1)
     acc = stepvec_acc0(stepvec[0], stepvec[1], geom) if acc_a is None else acc_a
+    kernel_layout = tuple(sel.shape[1:]) == sel_kernel_layout_shape(geom)
     for s0 in range(0, steps + spad, chunk):
-        fb_k = expand_fblock_chunk(sel[s0:s0 + chunk], geom)
+        lines = sel[s0:s0 + chunk]
+        fb_k = expand_fblock_chunk(
+            from_sel_kernel_layout(lines, geom) if kernel_layout else lines, geom)
         acc = blind_rotate_fblock(acc, fb_k, bara[:, s0:s0 + chunk], geom,
                                   decomp_length, log2_base, offset)
     return acc

@@ -71,13 +71,14 @@ def build_sharded_mk_fb(ck_samples, params, parties: int, mesh: Mesh) -> list:
 
 
 def build_sharded_mk_sel(ck_samples, params, parties: int, mesh: Mesh) -> list:
-    """The party-sharded COMPACT key: party p's (n, R, 2N, ncols) int8 lines
-    (``fblock.build_sel``), on the mesh's party-p device."""
+    """The party-sharded COMPACT key: party p's n steps of int8 lines, built
+    on the mesh's party-p device in the form its rotate reads
+    (``fblock.build_sel_key``: the compact kernel layout (n, ncols, R, 2N) on
+    a CUDA device, (n, R, 2N, ncols) on the CPU)."""
     _check_mesh(mesh, parties)
     hi = _party_hi_samples(ck_samples, params, parties)
     geom = _local_geom(params)
-    return [torch.from_numpy(fblock.build_sel(hi[p], geom)).to(dev)
-            for p, dev in enumerate(mesh.party_devices())]
+    return [fblock.build_sel_key(hi[p], geom, dev) for p, dev in enumerate(mesh.party_devices())]
 
 
 def _hand_over(acc: torch.Tensor, src, dst, device: torch.device) -> torch.Tensor:
@@ -101,7 +102,7 @@ def mk_blind_rotate_pipelined(shards, bara: torch.Tensor, barb: torch.Tensor, mu
     """The pipelined multikey blind rotate. Returns the final (B, C, N)
     int32 accumulators (hi-word torus) on party 0's device.
 
-    shards: per party, the expanded key from ``build_sharded_mk_fb`` or the compact lines (n, R, 2N, ncols) from
+    shards: per party, the expanded key from ``build_sharded_mk_fb`` or the compact lines from
     ``build_sharded_mk_sel``; bara: (B, parties, n) int32 mod-switched masks
     (party-major); barb: (B,) int32; mu32: the test vector's hi word. On
     CUDA tensors every rotate launches a kernel (blind_rotate.cu for the
@@ -122,7 +123,8 @@ def mk_blind_rotate_pipelined(shards, bara: torch.Tensor, barb: torch.Tensor, mu
     geom = _local_geom(params)
     tg32 = TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
     args = (geom, tg32.decomp_length, tg32.log2_base, tg32.offset)
-    compact = tuple(shards[0].shape[1:]) == (geom.R, 2 * geom.N, len(geom.cols))
+    compact = tuple(shards[0].shape[1:]) in ((geom.R, 2 * geom.N, len(geom.cols)),
+                                             fblock.sel_kernel_layout_shape(geom))
     rot = rotate_streamed if compact else rotate
     devs = mesh.party_devices()
     bara_p = [bara[:, p].contiguous().to(devs[p]) for p in range(parties)]  # (B, n) each
