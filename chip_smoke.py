@@ -26,19 +26,32 @@ read just after:
   of blind_rotate.cu). Party p runs on a CUDA stream of cuda:(p % device
   count), so on one card every party is a stream of cuda:0. The pipelined
   accumulators must equal the single-call kernel over all steps and the
-  plain version stage by stage, word for word.
+  plain version stage by stage, word for word;
+- the wide route, which no kernel takes and the JAX package runs outside
+  Pallas too (ops/cuda_rotate.takes_kernel_route): W1, the torch-op scan on
+  CUDA tensors == the same scan on CPU tensors at small 64-bit and wide-digit
+  geometries; W2, the 3gen multikey gates at mk_16party_3gen, full width and
+  depth (16 party keygens, the compact key of the raw 64-bit samples, AND
+  and NAND decrypt-checked, boot-noise std against the committed envelope,
+  zero launches of either kernel, a ``routes`` line with the counts, and
+  where a rotate's time goes: host against device, product against
+  expansion against keyswitch); W3, bootsAND at tfhe_80 (Bg = 2^10);
+- S1, the key files (utils/serialize.py): the fast set's secret and cloud key
+  and the 4-party 3gen cloud key are saved, loaded back onto the card, and
+  give the same gate words on the same ciphertexts.
 
 The compact kernel is also held against the expanded one on the full
 2-party key, each kernel against its plain version on one pipeline stage
 in explicit-accumulator mode, the party-sharded keyswitch and threshold
 decryption against their single-device forms, and the tiny-parameter mesh
 dry run (parallel/dryrun.py) runs on 8 slots. Each phase prints one line;
-the first failure ends the run with a non-zero code. The last three lines
+the first failure ends the run with a non-zero code. The last four lines
 are the kernels' JSON record (each kernel's time and its plain version's at
 its main shape, beside the bound computed from the shapes; no single PyTorch
 call computes a CMux chain, so library_ms is null, and a yardstick line,
 labelled partial, gives n times the one torch._int_mm of a plain step), the
-card's name and power limit as nvidia-smi gives them, and
+``routes`` record of the wide route (per set: no launch of either kernel, and
+its count of int8 products), the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": ...}. Without a CUDA device, or
 outside the repository, it fails and prints no result. It imports no JAX.
 """
@@ -66,7 +79,7 @@ MK_SETS = (("mk_2party_3gen", 2, 1024), ("mk_4party_3gen", 4, 256),
 # (measurements/noises__mk_{2,4,8}party_3gen_trials-300.dat); the port's must
 # lie within NOISE_BAND times it
 NOISE_ENVELOPE = {"mk_2party_3gen": 0.01427, "mk_4party_3gen": 0.01448,
-                  "mk_8party_3gen": 0.01669}
+                  "mk_8party_3gen": 0.01669, "mk_16party_3gen": 0.00983}
 NOISE_BAND = (0.75, 1.33)
 # the set whose shapes each kernel's JSON times are taken at
 MAIN_SHAPE = {"blind_rotate": "tfhe_128_tpu_fast", "blind_rotate_sel": "mk_8party_3gen"}
@@ -79,6 +92,14 @@ PIPE_BATCH = {"mk_8party_3gen": 256, "mk_2party_3gen": 1024}
 PIPE_FORM = {"mk_8party_3gen": "compact", "mk_2party_3gen": "expanded"}
 MICROBATCHES = 4
 STAGE_BATCH = 64  # one microbatch at 8 parties
+# the wide route. W1: (tag, N, l, log2 Bg, torus bits) at k = 1, steps, batches
+WIDE_SMALL = (("N=64 l=1 Bg=2^26 64-bit", 64, 1, 26, 64), ("N=64 l=2 Bg=2^18 64-bit", 64, 2, 18, 64),
+              ("N=64 l=2 Bg=2^10 32-bit", 64, 2, 10, 32))
+WIDE_STEPS = 21
+WIDE_RAGGED = (1, 37)
+WIDE_SET = ("mk_16party_3gen", 16, 128)  # W2: registry name, parties, batch
+TFHE80_BATCH = 256  # W3
+S1_MK_SET = "mk_4party_3gen"  # the 3gen key that S1 saves and loads
 
 
 def log(phase: str, msg: str) -> None:
@@ -120,6 +141,43 @@ def event_once(fn):
 
 def rand_i32(rng, shape, lo=-2**31, hi=2**31):
     return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)).to(DEVICE)
+
+
+def rand_torus(rng, shape, bits: int) -> np.ndarray:
+    """Uniform torus words of ``bits`` bits, host numpy."""
+    words = rng.integers(-2**(bits - 1), 2**(bits - 1), shape, dtype=np.int64)
+    return words.astype(np.int32 if bits == 32 else np.int64)
+
+
+def enqueue_and_total(fn):
+    """(result, host seconds until fn returned, host seconds until the card
+    finished) of one call of fn."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    t_enqueue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return out, t_enqueue, time.perf_counter() - t
+
+
+def device_busy(fn):
+    """(milliseconds the card's kernels ran during one call of fn, the five
+    longest as 'name ms'), from torch.profiler; (None, []) where the profiler
+    shows no kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "self_device_time_total", 0), e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    rows = [(us, key) for us, key in rows if us > 0]
+    if not rows:
+        return None, []
+    return sum(us for us, _ in rows) / 1e3, [f"{key[:48]} {us / 1e3:.2f}" for us, key in rows[:5]]
 
 
 def main() -> int:
@@ -333,6 +391,33 @@ def main() -> int:
         f"{MAIN_BATCH / statistics.mean(sh_s):.1f} gates/s (single device "
         f"{MAIN_BATCH / statistics.mean(gate_s):.1f})")
 
+    # S1: the fast set's key files, saved, loaded back onto the card, same gate words
+    import os
+    import tempfile
+
+    from torus_fhe_tpu_torch.utils import serialize
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("secret.key", "cloud.key")]
+        _, t_save = sync_time(lambda: (serialize.save_secret_key(paths[0], sk),
+                                       serialize.save_cloud_key(paths[1], ck)))
+        size = sum(os.path.getsize(f) for f in paths)
+        (sk2, ck2), t_load = sync_time(lambda: (serialize.load_secret_key(paths[0]),
+                                                serialize.load_cloud_key(paths[1])))
+    if sk2.key.key.device.type != dev.type or ck2.bootstrap_key.fb.device.type != dev.type:
+        raise AssertionError("S1: loaded keys are not on the card")
+    if ck2.params != fast or not torch.equal(ck2.bootstrap_key.fb, ck.bootstrap_key.fb):
+        raise AssertionError("S1: the loaded cloud key differs from the saved one")
+    out2 = gates.gate_and(ck2, cx, cy)
+    if not (torch.equal(out2.a, out.a) and torch.equal(out2.b, out.b)):
+        raise AssertionError("S1: gate_and on the loaded key != on the saved key")
+    if not torch.equal(api.decrypt(sk2, out2), x & y):
+        raise AssertionError("S1: the loaded secret key decrypts wrong")
+    log("S1 key files", f"tfhe_128_tpu_fast secret + cloud key: {size / 1e6:.1f} MB on disk, saved "
+        f"in {t_save:.2f} s, loaded onto the card in {t_load:.2f} s; gate_and on the loaded key "
+        f"== on the saved key word for word (B={MAIN_BATCH}), decrypts")
+    del sk2, ck2, out2
+
     del sk, ck, cx, cy, c1x, c1y, chain, out, plain_out, kern_out, acc0, t, bara, barb, sv
     del keys_by_dev, xs, ys, sh_out
     torch.cuda.empty_cache()
@@ -340,6 +425,7 @@ def main() -> int:
     mkr = multikey(dev, rng)
     pipe = pipelines(rng, mkr.pop("kept"))
     sharded_ops(rng)
+    routes = wide_route(dev, rng)
 
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
@@ -359,6 +445,7 @@ def main() -> int:
          "plain_ms": mkr["plain_ms"]["blind_rotate_sel"],
          "bound_ms": mkr["bound_ms"]["blind_rotate_sel"][0],
          "bound_by": mkr["bound_ms"]["blind_rotate_sel"][1], "library_ms": None}]}))
+    print(json.dumps({"routes": routes}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -411,8 +498,7 @@ def multikey(dev, rng) -> dict:
         if err:
             raise AssertionError(f"{kernel} != reference at {tag}: max |diff| {err}")
 
-    # M1. compact kernel == plain blind_rotate_streamed at small geometries:
-    # 42 steps (the plain version pads them to its 64-step chunk)
+    # M1. compact kernel == plain blind_rotate_streamed at small geometries, 42 steps
     for N in (64, 256):
         for l, lb in ((2, 7), (3, 6), (4, 4)):
             params = P.SchemeParams3Gen(**{**P.test_parameters_3gen(2, 21, N).__dict__,
@@ -441,7 +527,7 @@ def multikey(dev, rng) -> dict:
         t0 = time.perf_counter()
         sks = [mk.mk_party_keygen(gen, params, device=dev) for _ in range(parties)]
         ck = mk.mk_cloud_keygen(gen, sks, params, device=dev, forms=forms,
-                                keep_samples=name in PIPE_BATCH)
+                                keep_samples=name in PIPE_BATCH or name == S1_MK_SET)
         torch.cuda.synchronize()
         t_keygen = time.perf_counter() - t0
         keys = [sk.lwe for sk in sks]
@@ -490,6 +576,9 @@ def multikey(dev, rng) -> dict:
             f"{other} 0x; boot-noise std {noise:.5f} ({noise / env:.3f}x envelope {env}); "
             f"keygen {t_keygen:.2f} s, AND {t_and:.3f} s = {B / t_and:.1f} gates/s; peak memory "
             f"{peak / 1e9:.2f} GB")
+
+        if name == S1_MK_SET:  # S1: this key's file, saved, loaded onto the card, same words
+            save_load_mk_key(ck, lambda k: gates3gen.mk_gate_and(k, ct, ct_true), out, name, B)
 
         # the kernels at this set's shapes: the AND's rotate, stepvec mode
         t = gates3gen.mk_gate_and_wb(main_ck, ct, ct_true)
@@ -690,6 +779,239 @@ def pipelines(rng, kept: dict) -> dict:
         del shards, full_key, pipe, plain_out, out, ref, ck, sks, cx, cy, t, bara, barb
         torch.cuda.empty_cache()
     return res
+
+
+def save_load_mk_key(ck, gate, want, name: str, B: int) -> None:
+    """S1 for a 3gen cloud key: save it, load it back onto the card in the
+    file's forms, and hold ``gate`` on the loaded key against ``want``, its
+    words on the saved key."""
+    import os
+    import tempfile
+
+    from torus_fhe_tpu_torch.utils import serialize
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mk_cloud.key")
+        _, t_save = sync_time(lambda: serialize.save_mk_cloud_key(path, ck))
+        size = os.path.getsize(path)
+        ck2, t_load = sync_time(lambda: serialize.load_mk_cloud_key(path))
+    if ck2.ks_mat.device != ck.ks_mat.device or ck2.parties != ck.parties or \
+            ck2.params != ck.params:
+        raise AssertionError(f"S1 {name}: the loaded key is not the saved one on the card")
+    for form in ("bk_fb", "bk_fb_sel"):
+        a, b = getattr(ck, form), getattr(ck2, form)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"S1 {name}: {form} of the loaded key differs")
+    got = gate(ck2)
+    if not (torch.equal(got.a, want.a) and torch.equal(got.b, want.b)):
+        raise AssertionError(f"S1 {name}: the gate on the loaded key != on the saved key")
+    log("S1 key files", f"{name} cloud key: {size / 1e6:.1f} MB on disk, saved in {t_save:.2f} s, "
+        f"loaded onto the card in {t_load:.2f} s; mk_gate_and on the loaded key == on the saved "
+        f"key word for word (B={B})")
+
+
+def wide_route(dev, rng) -> dict:
+    """The route of the 64-bit torus and of digits wider than a byte: torch
+    ops on the card, no kernel (the JAX package runs it as an XLA scan
+    outside Pallas). W1, W2 and W3 of the module docstring. Returns the
+    ``routes`` record: per set, the launches of either kernel (0) and the
+    int8 products of its main path."""
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.boot import api, bootstrap, gates
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.core.torus import decode_message
+    from torus_fhe_tpu_torch.lwe import LweSample
+    from torus_fhe_tpu_torch.mk import boot3gen, gates3gen, keys3gen
+    from torus_fhe_tpu_torch.ops import cuda_rotate, fblock, poly
+    from torus_fhe_tpu_torch.rlwe import RLweSample, rlwe_extract_sample
+
+    routes = {}
+
+    def counts():
+        return {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+                "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches,
+                "int8_matmul": poly.int8_matmul.calls}
+
+    def reset():
+        reset_launches(cuda_rotate)
+        poly.int8_matmul.calls = 0
+
+    # W1. the scan on CUDA tensors == the scan on CPU tensors, small geometries
+    worst = 0
+    for tag, N, l, lb, bits in WIDE_SMALL:
+        geom = fblock.fblock_geometry(WIDE_STEPS, N, 1, l, bits, 0)
+        tg = P.TGswParams(l, lb, bits)
+        args = (geom, tg.decomp_length, tg.log2_base, tg.offset)
+        if cuda_rotate.takes_kernel_route(geom, lb):
+            raise AssertionError(f"W1 {tag}: not on the wide route")
+        samples = rand_torus(rng, (WIDE_STEPS, l, 2, 2, N), bits)
+        sel = torch.from_numpy(fblock.build_sel(samples, geom))
+        fb = fblock.build_fblocks(samples, geom, "cpu")
+        sel_d, fb_d = sel.to(dev), fblock.build_fblocks(samples, geom, dev)
+        if not torch.equal(fb_d.cpu(), fb):
+            raise AssertionError(f"W1 {tag}: the key expanded on the card != on the CPU")
+        mu = 1 << (bits - 3)
+        for B in WIDE_RAGGED:
+            acc = torch.from_numpy(rand_torus(rng, (B, 2, N), bits))
+            bara = torch.from_numpy(rng.integers(0, 2 * N, (B, WIDE_STEPS)).astype(np.int32))
+            barb = torch.from_numpy(rng.integers(-N, N, B).astype(np.int32))
+            for mode, a, sv in (("acc", acc, None), ("stepvec", None, (mu, barb))):
+                a_d = None if a is None else a.to(dev)
+                sv_d = None if sv is None else (mu, barb.to(dev))
+                want = cuda_rotate.rotate_streamed(a, sel, bara, *args, stepvec=sv)
+                for what, got in (
+                        ("streamed", cuda_rotate.rotate_streamed(a_d, sel_d, bara.to(dev), *args,
+                                                                 stepvec=sv_d)),
+                        ("expanded", cuda_rotate.rotate(a_d, fb_d, bara.to(dev), *args,
+                                                        stepvec=sv_d))):
+                    err = max_diff(got.cpu(), want)
+                    worst = max(worst, err)
+                    if got.device.type != dev.type or err:
+                        raise AssertionError(f"W1 {tag} B={B} {mode} {what}: card != CPU, max "
+                                             f"|diff| {err} on {got.device}")
+        log("W1 wide==plain", f"{tag}: {WIDE_STEPS} steps, B in {WIDE_RAGGED}, both modes, compact "
+            f"and expanded key: the scan on the card == on the CPU, max |diff| {worst}")
+
+    # W2. mk_16party_3gen at full width and depth
+    name, parties, B = WIDE_SET
+    params = P.PARAMETER_REGISTRY[name]()
+    forms = keys3gen.default_forms(params, parties)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(SEED + parties)
+    t0 = time.perf_counter()
+    sks = [mk.mk_party_keygen(gen, params, device=dev) for _ in range(parties)]
+    ck = mk.mk_cloud_keygen(gen, sks, params, device=dev, forms=forms)
+    torch.cuda.synchronize()
+    t_keygen = time.perf_counter() - t0
+    if ck.bk_fb is not None or forms != ("fbstream",):
+        raise AssertionError(f"{name}: forms {forms}")
+    keys = [sk.lwe for sk in sks]
+    geom = keys3gen.mk_fb64_geometry(params, parties)
+    tg = P.TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 64)
+    args = (geom, tg.decomp_length, tg.log2_base, tg.offset)
+    log(f"W2 {name}", f"{parties} party keygens + cloud keygen {t_keygen:.2f} s; compact key "
+        f"{tuple(ck.bk_fb_sel.shape)} = {ck.bk_fb_sel.numel() / 1e9:.3f} GB, {len(geom.cols)} limb "
+        f"columns, {geom.bits}-bit; keyswitch table {tuple(ck.ks_mat.shape)} = "
+        f"{ck.ks_mat.numel() / 1e9:.3f} GB")
+    msgs = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    ct, cy = mk.mk_encrypt(gen, keys, msgs, params), mk.mk_encrypt(gen, keys, ys, params)
+    ct_true = mk.mk_encrypt(gen, keys, torch.ones(B, dtype=torch.bool, device=dev), params)
+    torch.cuda.synchronize()
+    reset()
+    out, t_and = sync_time(lambda: gates3gen.mk_gate_and(ck, ct, ct_true))
+    nand, t_nand = sync_time(lambda: gates3gen.mk_gate_nand(ck, out, cy))
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    if got["blind_rotate"] or got["blind_rotate_sel"]:
+        raise AssertionError(f"{name}: the wide route launched a kernel: {got}")
+    if got["int8_matmul"] != 2 * (geom.n + 1):
+        raise AssertionError(f"{name}: {got['int8_matmul']} int8 products, want 2 gates x "
+                             f"({geom.n} steps + 1 keyswitch)")
+    routes[name] = {"route": "torch ops (fblock.blind_rotate_streamed, 64-bit)", **got,
+                    "gates": 2, "batch": B}
+    if out.a.shape != (B, parties, params.lwe_size) or out.a.dtype != torch.int32:
+        raise AssertionError(f"{name}: gate output {out.a.dtype} {tuple(out.a.shape)}")
+    phase = mk.mk_lwe_phase(out, keys)
+    wrong = int((phase > 0).ne(msgs).sum()) + int(mk.mk_decrypt(keys, nand).ne(~(msgs & ys)).sum())
+    if wrong:
+        raise AssertionError(f"{name}: {wrong} wrong decryptions")
+    ideal = torch.where(msgs, 1 << 29, -(1 << 29)).to(torch.int32)
+    noise = ((phase - ideal).double() / 2.0**32).std().item()
+    env = NOISE_ENVELOPE[name]
+    if not NOISE_BAND[0] <= noise / env <= NOISE_BAND[1]:
+        raise AssertionError(f"{name}: boot-noise std {noise:.5f} is {noise / env:.3f}x the "
+                             f"envelope {env}, outside {NOISE_BAND}")
+    log(f"W2 {name}", f"fbstream key, B={B}: AND and NAND decrypt correctly (0 wrong of {2 * B}); "
+        f"blind_rotate 0x, blind_rotate_sel 0x, int8 products {got['int8_matmul']}; boot-noise "
+        f"std {noise:.5f} ({noise / env:.3f}x envelope {env}); AND {t_and:.3f} s = "
+        f"{B / t_and:.2f} gates/s, NAND {t_nand:.3f} s; peak memory {peak / 1e9:.2f} GB")
+
+    # where a gate's time goes: the rotate (host against device), its parts, the keyswitch
+    t = gates3gen.mk_gate_and_wb(ck, ct, ct_true)
+    N = params.rlwe_polynomial_degree
+    bara = decode_message(t.a, 2 * N).reshape(B, -1)
+    sv = (gates3gen.MU, decode_message(t.b, 2 * N))
+    acc, t_enq, t_rot = enqueue_and_total(
+        lambda: cuda_rotate.rotate_streamed(None, ck.bk_fb_sel, bara, *args, stepvec=sv))
+    steps = geom.n
+    one_chunk = lambda: fblock.blind_rotate_streamed(acc, ck.bk_fb_sel[:64], bara[:, :64], *args)
+    _, c_enq, c_tot = enqueue_and_total(one_chunk)
+    busy_ms, top = device_busy(one_chunk)
+    # at one gate the card has next to nothing to do: the chunk's wall time is the host's
+    one_gate = lambda: fblock.blind_rotate_streamed(acc[:1], ck.bk_fb_sel[:64], bara[:1, :64],
+                                                    *args)
+    one_gate()
+    host_s = min(sync_time(one_gate)[1] for _ in range(3))
+    nl = len(poly.digits_to_i8_rows(torch.zeros((1, 8), dtype=torch.int32), tg.log2_base))
+    rows, K, cols = nl * B * geom.nb, geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs
+    gy = torch.Generator(device=dev).manual_seed(SEED)
+    dexp = torch.randint(-128, 128, (rows, K), generator=gy, dtype=torch.int8, device=dev)
+    fmat_t = torch.randint(-128, 128, (cols, K), generator=gy, dtype=torch.int8, device=dev)
+    mm_ms = event_ms(lambda: poly.int8_matmul(dexp, fmat_t.t()), 20)
+    mm_row_ms = event_ms(lambda: poly.int8_matmul(dexp, fmat_t.t().contiguous()), 5)
+    exp_ms = event_ms(lambda: fblock.expand_kernel_chunk(ck.bk_fb_sel[:64], geom), 3)
+    u = rlwe_extract_sample(RLweSample(acc))
+    ks_ms = event_ms(lambda: boot3gen.mk_keyswitch(ck, LweSample(u.a, u.b)), 3)
+    macs = steps * rows * K * cols  # as multiplied: half of the digit matrix is zeros
+    bound_ms = 2 * macs / cuda_rotate.INT8_OPS_PER_S * 1e3
+    busy = "not measured" if busy_ms is None else f"{busy_ms / 64 * 1e3:.1f} us"
+    log(f"W2 {name} rotate", f"B={B}, {steps} steps, {nl} limb blocks stacked: one int8 product ({rows} x {K}) @ ({K} x {cols}) a step; rotate "
+        f"{t_rot * 1e3:.1f} ms = {t_rot / steps * 1e6:.1f} us a step, host enqueue "
+        f"{t_enq * 1e3:.1f} ms = {t_enq / steps * 1e6:.1f} us a step; bound from shapes "
+        f"{bound_ms:.1f} ms as multiplied ({bound_ms / 2:.1f} ms for the non-zero half)")
+    log(f"W2 {name} parts", f"one 64-step chunk: {c_tot * 1e3:.2f} ms wall ({c_enq * 1e3:.2f} ms "
+        f"host enqueue), the same chunk at B=1 {host_s * 1e3:.2f} ms = {host_s / 64 * 1e6:.1f} us "
+        f"a step (the host's share: ops issued one by one), kernels on the card {busy} a step "
+        f"(torch.profiler; top: "
+        f"{'; '.join(top) if top else 'none'}); alone by CUDA events: the int8 product "
+        f"{mm_ms * 1e3:.1f} us with the key side's reduction index contiguous (row-major, copy "
+        f"included: {mm_row_ms * 1e3:.1f} us), the chunk's expansion {exp_ms:.3f} ms = {exp_ms / 64 * 1e3:.1f} us "
+        f"a step; keyswitch ({B} x {ck.ks_mat.shape[0]}) @ {tuple(ck.ks_mat.shape)} "
+        f"{ks_ms:.3f} ms")
+    del sks, ck, ct, cy, ct_true, out, nand, t, bara, sv, acc, dexp, fmat_t, u
+    torch.cuda.empty_cache()
+
+    # W3. tfhe_80: single key, Bg = 2^10 on the 32-bit torus
+    p80 = P.tfhe_parameters_80()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(SEED + 80)
+    (sk, ck80), t_keygen = sync_time(lambda: api.make_key_pair(gen, p80, device=dev))
+    B = TFHE80_BATCH
+    x = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    cx, cy = api.encrypt(gen, sk, x), api.encrypt(gen, sk, y)
+    torch.cuda.synchronize()
+    reset()
+    out, t_and = sync_time(lambda: gates.gate_and(ck80, cx, cy))
+    got = counts()
+    if got["blind_rotate"] or got["blind_rotate_sel"] or got["int8_matmul"] != p80.lwe_size + 1:
+        raise AssertionError(f"tfhe_80: {got}, want no kernel launch and "
+                             f"{p80.lwe_size + 1} int8 products")
+    routes["tfhe_80"] = {"route": "torch ops (fblock.blind_rotate_fblock, 32-bit, Bg=2^10)",
+                         **got, "gates": 1, "batch": B}
+    if not torch.equal(api.decrypt(sk, out), x & y):
+        raise AssertionError("tfhe_80 bootsAND decrypts wrong")
+    nand = gates.gate_nand(ck80, out, cy)
+    if not torch.equal(api.decrypt(sk, nand), ~((x & y) & y)):
+        raise AssertionError("tfhe_80 NAND of a bootstrapped output decrypts wrong")
+    gate_s = [sync_time(lambda: gates.gate_and(ck80, cx, cy))[1] for _ in range(3)]
+    fb = ck80.bootstrap_key.fb
+    g80 = bootstrap.bk_geometry(p80)
+    nl80 = len(poly.digits_to_i8_rows(torch.zeros((1, 8), dtype=torch.int32), p80.bs_log2_base))
+    macs80 = (p80.lwe_size * nl80 * B * g80.nb * g80.D * g80.R * g80.bs
+              * len(g80.cols) * g80.bs)
+    log("W3 tfhe_80", f"B={B}: bootsAND and a NAND of its output decrypt correctly; "
+        f"blind_rotate 0x, blind_rotate_sel 0x, int8 products {got['int8_matmul']} a gate; keygen "
+        f"{t_keygen:.2f} s, key {tuple(fb.shape)} = {fb.numel() / 1e9:.2f} GB; bootsAND "
+        f"{t_and:.3f} s cold, {B / statistics.mean(gate_s):.1f} gates/s "
+        f"({statistics.mean(gate_s) / p80.lwe_size * 1e6:.1f} us a step; bound from shapes "
+        f"{2 * macs80 / cuda_rotate.INT8_OPS_PER_S * 1e3:.1f} ms a gate batch as multiplied, "
+        f"{nl80} limb blocks); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del sk, ck80, cx, cy, out, nand, fb
+    torch.cuda.empty_cache()
+    return routes
 
 
 def sharded_ops(rng) -> None:

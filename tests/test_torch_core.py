@@ -183,7 +183,8 @@ def test_package_never_imports_jax():
             " or k.startswith('torus_fhe_tpu.') or k == 'torus_fhe_tpu')\n"
             "assert not bad, bad\n"
             "assert {'torus_fhe_tpu_torch.parallel.mk_pipeline', 'torus_fhe_tpu_torch.parallel.sharded',"
-            " 'torus_fhe_tpu_torch.threshold.decrypt'} <= set(sys.modules)\n"
+            " 'torus_fhe_tpu_torch.threshold.decrypt', 'torus_fhe_tpu_torch.utils.serialize'}"
+            " <= set(sys.modules)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)

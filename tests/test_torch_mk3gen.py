@@ -125,7 +125,7 @@ def test_expand_fblock_chunk_equals_jax():
 
 
 @pytest.mark.parametrize("init", ["acc", "stepvec"])
-@pytest.mark.parametrize("chunk", [32, 12])  # 32 = all steps; 12 pads 32 to 36
+@pytest.mark.parametrize("chunk", [32, 12])  # 32 = all steps; 12: a ragged last chunk, which JAX pads
 def test_blind_rotate_streamed_equals_jax(chunk, init):
     params, *_, tp, _, tck, _ = _jax_world(2)
     geom, jgeom = keys3gen.mk_fb_geometry(tp, 2), jkeys3.mk_fb_geometry(params, 2)
@@ -342,15 +342,20 @@ def test_default_forms_and_unported_routes():
         assert keys3gen.default_forms(p, parties) == ("fbstream",)
     big = tparams.mktfhe_parameters_16party_3gen()
     assert not keys3gen.mk_fb_supported(big)
+    assert keys3gen.default_forms(big, 16) == ("fbstream",)
     g = torch.Generator().manual_seed(0)
     tiny_wide = tparams.SchemeParams3Gen(**{**PARAMS.__dict__, "gsw_decomp_length": 1,
                                             "gsw_log2_base": 26})
     sks = [mk.mk_party_keygen(g, tiny_wide, device="cpu") for _ in range(2)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mk.mk_cloud_keygen(g, sks, tiny_wide, device="cpu",
-                           forms=keys3gen.default_forms(tiny_wide, 2))
+    # a wide-digit set builds its key in the compact form of the raw 64-bit
+    # samples (16 limb columns) and refuses the hi-word expanded form
+    ck = mk.mk_cloud_keygen(g, sks, tiny_wide, device="cpu",
+                            forms=keys3gen.default_forms(tiny_wide, 2))
+    assert ck.bk_fb is None and ck.bk_fb_sel.shape == (32, 2, 128, 16)
+    with pytest.raises(ValueError, match="fbstream"):
+        mk.mk_cloud_keygen(g, sks, tiny_wide, device="cpu", forms=("fblock",))
     fake = keys3gen.MKCloudKey(torch.zeros((8, 8), dtype=torch.int8), 2, tiny_wide)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="fbstream"):  # a wide key without its lines
         boot3gen._fast_rotate_extract(fake, MU64, torch.zeros((1, 32), dtype=torch.int32),
                                       torch.zeros(1, dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="conv"):

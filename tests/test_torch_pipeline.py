@@ -1,5 +1,8 @@
 """The port's party-pipelined multikey blind rotate
-(torus_fhe_tpu_torch/parallel/mk_pipeline.py) against the JAX package.
+(torus_fhe_tpu_torch/parallel/mk_pipeline.py) against the JAX package, over
+the EXPANDED key; the compact-key cases are in
+tests/test_torch_pipeline_compact.py, and both share
+tests/_torch_pipeline_helpers.py.
 
 JAX runs its pipeline on the virtual 8-CPU mesh of tests/conftest.py (its
 Pallas route only runs on a TPU, so its CPU route is the XLA rotate, as in
@@ -10,108 +13,48 @@ exact integer arithmetic, so the tolerance is word-for-word equality.
 
 The tests on the port's own keys need no JAX, so that the ``cuda``-marked
 one runs on a GPU machine, which has no JAX:
-``python -m pytest tests/test_torch_pipeline.py -m cuda --noconftest``.
+``python -m pytest tests/test_torch_pipeline.py tests/test_torch_pipeline_compact.py -m cuda
+--noconftest``.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
 import torch
-
-try:
-    import jax
-    import jax.numpy as jnp
-
-    from torus_fhe_tpu import mk as jmk
-    from torus_fhe_tpu.core.params import test_parameters_3gen as jparams_3gen
-    from torus_fhe_tpu.core.torus import encode_message as jencode
-    from torus_fhe_tpu.parallel import mesh as jmesh
-    from torus_fhe_tpu.parallel import mk_pipeline as jpipe
-except ImportError:  # a GPU machine without JAX: the reference tests skip there
-    jax = None
+from _torch_pipeline_helpers import (B, CPU, MU32, MU64, N_LWE, N_RING, check_pipelined_kernels,
+                                     check_pipelined_rotate, jax, rotate_inputs, skip_without_jax,
+                                     world)
 
 from torus_fhe_tpu_torch import bridge, mk
 from torus_fhe_tpu_torch.core import params as tparams
-from torus_fhe_tpu_torch.mk import boot3gen, gates3gen
-from torus_fhe_tpu_torch.ops import cuda_rotate
+from torus_fhe_tpu_torch.mk import gates3gen
 from torus_fhe_tpu_torch.parallel import mesh as tmesh
 from torus_fhe_tpu_torch.parallel import mk_pipeline as tpipe
-from torus_fhe_tpu_torch.rlwe import RLweSample, rlwe_extract_sample
 
-MU64 = 1 << 61  # encode_message(1, 8) on the 64-bit torus
-MU32 = MU64 >> 32
-N_LWE, N_RING, B = 6, 64, 8
-CPU = torch.device("cpu")
+if jax is not None:
+    import jax.numpy as jnp
 
-_WORLDS = {}
+    from torus_fhe_tpu import mk as jmk
+    from torus_fhe_tpu.core.torus import encode_message as jencode
+    from torus_fhe_tpu.parallel import mk_pipeline as jpipe
 
 
 @pytest.fixture
 def needs_jax():
-    if jax is None:
-        pytest.skip("needs the JAX package, the reference")
+    skip_without_jax()
 
 
-def _world(parties):
-    """JAX keys with their raw samples, JAX's party-sharded keys of both
-    forms on its mesh, and the port's cloud key and sharded keys made from
-    the same samples on a mesh of repeated CPU devices."""
-    if parties not in _WORLDS:
-        params = jparams_3gen(parties=parties, n=N_LWE, N=N_RING)
-        sks = [jmk.mk_party_keygen(jax.random.PRNGKey(200 + p), params) for p in range(parties)]
-        ck = jmk.mk_cloud_keygen(jax.random.PRNGKey(201), sks, params, forms=("fblock",),
-                                 keep_samples=True)
-        jm = jmesh.make_mesh(n_batch=1, n_party=parties, devices=jax.devices()[:parties])
-        jkeys = {"expanded": jpipe.build_sharded_mk_fb(ck.bk_samples, params, parties, jm),
-                 "compact": jpipe.build_sharded_mk_sel(ck.bk_samples, params, parties, jm)}
-        tp = tparams.SchemeParams3Gen(**params.__dict__)
-        samples = np.asarray(ck.bk_samples)
-        tck = bridge.mk_cloud_key_from_numpy(tp, samples, np.asarray(ck.ks_mat), parties,
-                                             forms=("fblock", "fbstream"), device="cpu")
-        tm = tmesh.make_mesh(n_batch=1, n_party=parties, devices=[CPU] * parties)
-        tkeys = {"expanded": tpipe.build_sharded_mk_fb(samples, tp, parties, tm),
-                 "compact": tpipe.build_sharded_mk_sel(samples, tp, parties, tm)}
-        _WORLDS[parties] = (params, sks, ck, jm, jkeys, tp, tck, tm, tkeys)
-    return _WORLDS[parties]
-
-
-def _rotate_inputs(parties, seed):
-    rng = np.random.default_rng(seed)
-    bara = rng.integers(0, 2 * N_RING, (B, parties * N_LWE), dtype=np.int64).astype(np.int32)
-    barb = rng.integers(0, 2 * N_RING, B, dtype=np.int64).astype(np.int32)
-    return bara, barb
-
-
-@pytest.mark.parametrize("form", ["expanded", "compact"])
+@pytest.mark.parametrize("form", ["expanded"])
 @pytest.mark.parametrize("microbatches", [1, 2, 4, 8])
 @pytest.mark.parametrize("parties", [2, 4])
 def test_pipelined_rotate_equals_jax_and_single_device(needs_jax, parties, microbatches, form):
-    """M=1 has no overlap; M=8 gives one gate per microbatch."""
-    params, _, _, jm, jkeys, tp, tck, tm, tkeys = _world(parties)
-    bara, barb = _rotate_inputs(parties, 10 * parties + microbatches)
-    want = jpipe.mk_blind_rotate_pipelined(
-        jkeys[form], jnp.asarray(bara.reshape(B, parties, -1)), jnp.asarray(barb), MU32,
-        params, parties, jm, microbatches=microbatches)
-    got = tpipe.mk_blind_rotate_pipelined(
-        tkeys[form], torch.from_numpy(bara.reshape(B, parties, -1)), torch.from_numpy(barb),
-        MU32, tp, parties, tm, microbatches=microbatches)
-    assert got.shape == (B, 2, N_RING) and got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jax.device_get(want)))
-    # the single chain over all parties*n steps, in the same key form
-    key1 = dataclasses.replace(tck, **({"bk_fb_sel": None} if form == "expanded"
-                                       else {"bk_fb": None}))
-    single = boot3gen._fast_rotate_extract(key1, MU64, torch.from_numpy(bara),
-                                           torch.from_numpy(barb), B)
-    u = rlwe_extract_sample(RLweSample(got))
-    assert torch.equal(u.a, single.a) and torch.equal(u.b, single.b)
+    check_pipelined_rotate(parties, microbatches, form)
 
 
 @pytest.mark.parametrize("parties", [2, 4])
 def test_pipelined_bootstrap_equals_jax(needs_jax, parties):
     """mk_bootstrap_pipelined on JAX's keys and ciphertexts: JAX's words,
     and the NAND truth table under JAX's secret keys."""
-    params, sks, ck, jm, jkeys, tp, tck, tm, tkeys = _world(parties)
+    params, sks, ck, jm, jkeys, tp, tck, tm, tkeys = world(parties)
     lwe_keys = [sk.lwe for sk in sks]
     xs = np.array([False, False, True, True] * 2)
     ys = np.array([False, True, False, True] * 2)
@@ -159,7 +102,7 @@ def test_pipeline_rejects_bad_shapes_and_meshes():
     tm = tmesh.make_mesh(n_batch=1, n_party=4, devices=[CPU] * 4)
     sel = tpipe.build_sharded_mk_sel(np.zeros((24, 2, 2, 2, N_RING), np.int64), tp, 4, tm)
     assert [tuple(s.shape) for s in sel] == [(N_LWE, 4, 2 * N_RING, 8)] * 4
-    bara, barb = _rotate_inputs(4, 0)
+    bara, barb = rotate_inputs(4, 0)
     bara_t, barb_t = torch.from_numpy(bara.reshape(B, 4, -1)), torch.from_numpy(barb)
     with pytest.raises(ValueError, match="microbatches"):
         tpipe.mk_blind_rotate_pipelined(sel, bara_t, barb_t, MU32, tp, 4, tm, microbatches=3)
@@ -177,34 +120,6 @@ def test_pipeline_rejects_bad_shapes_and_meshes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["expanded", "compact"])
+@pytest.mark.parametrize("form", ["expanded"])
 def test_pipelined_kernels_equal_single_call(form):
-    """On one card, parties as streams of cuda:0: the pipelined rotate ==
-    the single-call kernel over all steps, P*M launches of the form's
-    kernel and none of the other."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the blind-rotate kernels are CUDA only")
-    parties, M = 4, 4
-    dev = torch.device("cuda", 0)
-    tp = tparams.test_parameters_3gen(parties=parties, n=N_LWE, N=N_RING)
-    g = torch.Generator().manual_seed(5)
-    sks = [mk.mk_party_keygen(g, tp, device=dev) for _ in range(parties)]
-    ck = mk.mk_cloud_keygen(g, sks, tp, device=dev, forms=("fblock", "fbstream"),
-                            keep_samples=True)
-    tm = tmesh.make_mesh(n_batch=1, n_party=parties, devices=[dev] * parties)
-    build = tpipe.build_sharded_mk_fb if form == "expanded" else tpipe.build_sharded_mk_sel
-    shards = build(ck.bk_samples, tp, parties, tm)
-    bara, barb = _rotate_inputs(parties, 7)
-    bara_t, barb_t = torch.from_numpy(bara).to(dev), torch.from_numpy(barb).to(dev)
-    before = (cuda_rotate.blind_rotate_cuda.launches, cuda_rotate.blind_rotate_sel_cuda.launches)
-    got = tpipe.mk_blind_rotate_pipelined(shards, bara_t.reshape(B, parties, -1), barb_t, MU32,
-                                          tp, parties, tm, microbatches=M)
-    torch.cuda.synchronize()
-    counts = (cuda_rotate.blind_rotate_cuda.launches - before[0],
-              cuda_rotate.blind_rotate_sel_cuda.launches - before[1])
-    assert counts == ((parties * M, 0) if form == "expanded" else (0, parties * M))
-    key1 = dataclasses.replace(ck, **({"bk_fb_sel": None} if form == "expanded"
-                                      else {"bk_fb": None}))
-    single = boot3gen._fast_rotate_extract(key1, MU64, bara_t, barb_t, B)
-    u = rlwe_extract_sample(RLweSample(got))
-    assert torch.equal(u.a, single.a) and torch.equal(u.b, single.b)
+    check_pipelined_kernels(form)

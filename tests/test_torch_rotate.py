@@ -76,8 +76,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         dict(bara=bara[:, :-1]),                           # step count
         dict(acc=acc.to(torch.int64)),                     # acc dtype
         dict(acc=acc[:, :1]),                              # acc shape
-        dict(geom=geom._replace(bits=64)),                 # 64-bit torus
-        dict(lb=9),                                        # digits wider than a byte
         dict(stepvec=(5, barb)),                           # acc and stepvec both
     ]
     for case in bad:
@@ -86,6 +84,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         with pytest.raises(ValueError):
             cuda_rotate.rotate(kw["acc"], kw["fb"], kw["bara"], kw["geom"], l, kw["lb"],
                                off, stepvec=kw["stepvec"])
+    # a 64-bit torus and digits wider than a byte: the kernel and its checks
+    # refuse them, while ``rotate`` sends them to the torch-op scan
+    for wide in (dict(geom=geom._replace(bits=64)), dict(lb=9)):
+        kw = dict(geom=geom, lb=lb)
+        kw.update(wide)
+        assert not cuda_rotate.takes_kernel_route(kw["geom"], kw["lb"])
+        with pytest.raises(ValueError):
+            cuda_rotate.check_args(acc, fb, bara, kw["geom"], l, kw["lb"])
+        with pytest.raises(ValueError):
+            cuda_rotate.blind_rotate_cuda(acc, fb, bara, kw["geom"], l, kw["lb"], off)
+    got = cuda_rotate.rotate(acc, fb, bara, geom, l, 9, off)
+    np.testing.assert_array_equal(
+        got.numpy(), fblock.blind_rotate_fblock(acc, fb, bara, geom, l, 9, off).numpy())
     with pytest.raises(ValueError):  # stepvec barb of the wrong shape
         cuda_rotate.rotate(None, fb, bara, geom, l, lb, off, stepvec=(5, barb[:1]))
     with pytest.raises(ValueError):  # the kernel itself takes CUDA tensors only

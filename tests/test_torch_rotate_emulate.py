@@ -1,0 +1,35 @@
+"""The indexing of csrc/blind_rotate.cu (the expanded-key kernel), emulated
+in numpy on the CPU: ``emulate_kernel`` (tests/_torch_rotate_helpers.py) must
+be word-equal to ``fblock.blind_rotate_fblock`` (exact integer arithmetic),
+which the other test files hold against the JAX package. All inputs come
+from a numpy seed; the tolerance is 0.
+"""
+
+import pytest
+import torch
+from _torch_rotate_helpers import emulate_kernel, world
+
+from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+
+
+# (B, SM count): 3 gates take the 16 x 8 tile, 20 gates the 64 x 16 one on a
+# large card and the 128 x 32 one on a card of one SM, where 200 gates take
+# the 256 x 32 one; 70 gates are ragged against 64. R*bs = 192 (k2_l1_N64)
+# takes the 64 x 16 tile with 64-byte stages at every batch
+@pytest.mark.parametrize("B, sms, tile", [(3, 132, (16, 8)), (20, 132, (64, 16)),
+                                          (70, 132, (64, 16)), (20, 1, (128, 32)),
+                                          (200, 1, (256, 32))])
+@pytest.mark.parametrize("name", ["k1_N256", "k2_rounded_N64", "k2_l1_N64", "multikey_N512"])
+def test_kernel_emulation_equals_plain_version(name, B, sms, tile):
+    _, fb, acc, bara, barb, args = world(name, B, 2)
+    geom, l, lb, offset = args
+    key = fblock.to_kernel_layout(fb, geom)
+    plan = cuda_rotate.rotate_plan(B, geom, l, sms)
+    narrow = name == "k2_l1_N64"
+    assert (plan.tile.bm, plan.tile.wq) == ((64, 16) if narrow else tile)
+    assert plan.tile.bk == (64 if narrow else 128)
+    got = emulate_kernel(acc, key, bara, geom, l, lb, offset, plan)
+    assert torch.equal(got, fblock.blind_rotate_fblock(acc, fb, bara, *args))
+    mu = -(1 << 29)
+    got = emulate_kernel(fblock.stepvec_acc0(mu, barb, geom), key, bara, geom, l, lb, offset, plan)
+    assert torch.equal(got, fblock.blind_rotate_fblock(None, fb, bara, *args, stepvec=(mu, barb)))

@@ -63,8 +63,6 @@ def test_sel_wrapper_rejects_what_the_kernel_does_not_take():
         dict(bara=bara.to(torch.int64)),               # bara dtype
         dict(bara=bara[:, :-1]),                       # step count
         dict(acc=acc[:, :1]),                          # acc shape
-        dict(geom=geom._replace(bits=64)),             # 64-bit torus
-        dict(lb=9),                                    # digits wider than a byte
         dict(stepvec=(5, barb)),                       # acc and stepvec both
         dict(acc=None, stepvec=(5, barb[:1])),         # barb shape
     ]
@@ -74,6 +72,19 @@ def test_sel_wrapper_rejects_what_the_kernel_does_not_take():
         with pytest.raises(ValueError):
             cuda_rotate.rotate_streamed(kw["acc"], kw["sel"], kw["bara"], kw["geom"], l,
                                         kw["lb"], off, stepvec=kw["stepvec"])
+    # a 64-bit torus and digits wider than a byte: the kernel and its checks
+    # refuse them, while ``rotate_streamed`` sends them to the torch-op scan
+    for wide in (dict(geom=geom._replace(bits=64)), dict(lb=9)):
+        kw = dict(geom=geom, lb=lb)
+        kw.update(wide)
+        assert not cuda_rotate.takes_kernel_route(kw["geom"], kw["lb"])
+        with pytest.raises(ValueError):
+            cuda_rotate.check_sel_args(acc, sel, bara, kw["geom"], l, kw["lb"])
+        with pytest.raises(ValueError):
+            cuda_rotate.blind_rotate_sel_cuda(acc, sel, bara, kw["geom"], l, kw["lb"], off)
+    got = cuda_rotate.rotate_streamed(acc, sel, bara, geom, l, 9, off)
+    np.testing.assert_array_equal(
+        got.numpy(), fblock.blind_rotate_streamed(acc, sel, bara, geom, l, 9, off).numpy())
     with pytest.raises(ValueError):  # the kernel itself takes CUDA tensors only
         cuda_rotate.blind_rotate_sel_cuda(acc, sel, bara, geom, l, lb, off)
     assert cuda_rotate.blind_rotate_sel_cuda.launches == before

@@ -3,7 +3,9 @@
 Port of torus_fhe_tpu/boot/bootstrap.py in its F-block form. The blind rotate
 runs where the key lives: a bootstrapping key on a CUDA device goes through
 the Hopper kernel (ops/cuda_rotate.py), one on the CPU through the plain
-version (ops/fblock.blind_rotate_fblock). There is no backend switch.
+version (ops/fblock.blind_rotate_fblock). A set with gadget digits wider than
+a byte (tfhe_80, Bg = 2^10) takes the torch-op scan on either device
+(ops/cuda_rotate.takes_kernel_route). There is no backend switch.
 """
 
 from __future__ import annotations
@@ -30,7 +32,11 @@ class BootstrapKey(NamedTuple):
     ``fb``: the expanded F-block key, int8, on the device the rotate runs on
     (5.45 GB at tfhe_128_tpu_fast), in the form that device's rotate reads
     (``fblock.build_rotate_key``): the kernel layout (n, D, ncols*bs, R*bs)
-    on a CUDA device, (n, D*R*bs, ncols*bs) on the CPU;
+    on a CUDA device, (n, D*R*bs, ncols*bs) on the CPU. A set whose rotate is
+    the torch-op scan (digits wider than a byte, as tfhe_80) holds the same:
+    on the card the scan's int8 product wants the key side with its reduction
+    index contiguous, which is a step of the kernel layout with its delta
+    blocks brought together (one copy of the step, ops/fblock);
     ``samples``: the compact TGSW samples (n, l, k+1, k+1, N) int32, on the
     host, from which ``fb`` is built.
     """

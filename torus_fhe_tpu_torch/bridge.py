@@ -67,8 +67,9 @@ def mk_cloud_key_from_numpy(params: SchemeParams3Gen, samples: np.ndarray,
                             device=None) -> keys3gen.MKCloudKey:
     """samples: (parties*n, l, 2, 2, N) int64 raw TGSW samples
     (``bk_samples``); ks_mat: (K, parties*(n+1)*4) int8 tables (``ks_mat``).
-    The hi-word rounding and the ``forms`` of the key are rebuilt here, on
-    ``device``."""
+    The ``forms`` of the key are rebuilt here, on ``device``: from the
+    hi-word rounded samples at a byte-digit set, from the raw ones at a
+    wide-digit set, which takes ``forms=("fbstream",)``."""
     return keys3gen.cloud_key_from_samples(
         params, np.array(samples, np.int64), torch.tensor(np.asarray(ks_mat, np.int8)),
         parties, forms, resolve_device(device), keep_samples=True)

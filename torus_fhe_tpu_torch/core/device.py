@@ -1,7 +1,8 @@
 """Where the entry points put their keys and ciphertexts.
 
 The keygen and loader entry points (boot/api.py, the keygens of
-boot/bootstrap.py and boot/keyswitch.py, mk/keys3gen.py, bridge.py) take
+boot/bootstrap.py and boot/keyswitch.py, mk/keys3gen.py, bridge.py, the
+loaders of utils/serialize.py) take
 ``device=None`` to mean the card: the current CUDA device. There is no
 fallback to the CPU; a caller that wants the plain versions on the CPU says
 ``device="cpu"``. The constant gates (``gate_constant``, ``mk_gate_constant``)

@@ -8,6 +8,7 @@ package's.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -124,6 +125,17 @@ class SchemeParams:
         return LweParams(self.rlwe_polynomial_degree * self.rlwe_mask_size)
 
 
+def tfhe_parameters_80(rlwe_mask_size: int = 1) -> SchemeParams:
+    """~80-bit security CGGI parameters (n=500, N=1024, l=2, Bg=2^10): digits
+    wider than a byte, so the blind rotate takes the torch-op scan."""
+    return SchemeParams(
+        500, 1 / 2**15 * math.sqrt(2 / math.pi),
+        1024, rlwe_mask_size, 32,
+        2, 10, 9e-9 * math.sqrt(2 / math.pi),
+        8, 2, 1 / 2**15 * math.sqrt(2 / math.pi),
+    )
+
+
 def tfhe_parameters_128(rlwe_mask_size: int = 1) -> SchemeParams:
     """~128-bit security CGGI2019 parameters (n=630, N=1024, l=3, Bg=2^7)."""
     return SchemeParams(
@@ -234,8 +246,8 @@ def mktfhe_parameters_8party_3gen() -> SchemeParams3Gen:
     return SchemeParams3Gen(540, 2**-14.04, 1024, 1, 64, 4, 4, 2**-30.70, 5, 2, 2**-14.04, 8)
 
 
-# The sets below have Bg >= 2^18: their blind rotate needs the exact 64-bit
-# streamed scan, which the port does not have yet (keygen raises).
+# The sets below have Bg >= 2^18: their key keeps the exact 64-bit lines
+# (mk/keys3gen.mk_fb64_geometry) and their blind rotate is the torch-op scan.
 def mktfhe_parameters_16party_3gen() -> SchemeParams3Gen:
     return SchemeParams3Gen(590, 2**-15.34, 2048, 1, 64, 1, 26, 2**-62.0, 4, 3, 2**-15.34, 16)
 
@@ -275,6 +287,7 @@ def test_parameters_3gen(parties: int = 2, n: int = 16, N: int = 64) -> SchemePa
 
 # The JAX package's registry names for the sets this package defines.
 PARAMETER_REGISTRY = {
+    "tfhe_80": tfhe_parameters_80,
     "tfhe_128": tfhe_parameters_128,
     "tfhe_128_tpu": tfhe_parameters_128_tpu,
     "tfhe_128_tpu_fast": tfhe_parameters_128_tpu_fast,

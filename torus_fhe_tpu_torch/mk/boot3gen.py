@@ -1,13 +1,17 @@
 """3rd-gen multikey gate bootstrapping.
 
-Port of torus_fhe_tpu/mk/boot3gen.py (the hi-word F-block route). The AKÖ
+Port of torus_fhe_tpu/mk/boot3gen.py (the F-block routes). The AKÖ
 external product is packed as a standard TGSW kernel (keys3gen.py), so the
 multikey blind rotate is one CMux chain of parties*n steps, party p's key
 bits at steps [p*n, (p+1)*n), and the accumulator stays one 2-poly RLWE
 sample whatever the party count. Over the hi-word rounded key that chain is
 a 32-bit one: the expanded key (``bk_fb``) runs blind_rotate.cu, the compact
 key (``bk_fb_sel``) blind_rotate_sel.cu, and CPU keys their plain versions
-(ops/cuda_rotate ``rotate`` / ``rotate_streamed``).
+(ops/cuda_rotate ``rotate`` / ``rotate_streamed``). At the wide-digit sets
+(16 parties and up) the key is not rounded: the chain runs on the 64-bit
+torus over the raw samples' lines, as the torch-op scan that
+``rotate_streamed`` picks from the parameters, and the extract truncates the
+int64 accumulator to the 32-bit LWE sample the keyswitch reads.
 
 The multikey keyswitch applies every party's table to the same extracted
 mask: one one-hot digit matrix against the party-concatenated tables, one
@@ -24,7 +28,7 @@ from ..lwe import LweSample
 from ..ops import poly
 from ..ops.cuda_rotate import rotate, rotate_streamed
 from ..rlwe import RLweSample, rlwe_extract_sample
-from .keys3gen import WIDE_DIGITS, MKCloudKey, mk_fb_geometry, mk_fb_supported
+from .keys3gen import MKCloudKey, mk_fb64_geometry, mk_fb_geometry, mk_fb_supported
 from .samples import MKLweSample
 
 
@@ -51,12 +55,20 @@ def mk_bootstrap_wo_keyswitch(ck: MKCloudKey, mu: int, x: MKLweSample) -> LweSam
 
 def _fast_rotate_extract(ck: MKCloudKey, mu: int, bara: torch.Tensor, barb: torch.Tensor,
                          B: int) -> LweSample:
-    """32-bit hi-word blind rotate over the F-block key (the expanded form
-    when the key has it, else the compact one), stepvec init, and extract.
-    bara: (B, parties*n) int32; barb: (B,) int32."""
+    """Blind rotate over the F-block key, stepvec init, and extract: the
+    32-bit hi-word chain (the expanded form when the key has it, else the
+    compact one) at the byte-digit sets, the exact 64-bit chain over the
+    compact lines at the wide-digit sets, whose test vector is the full
+    64-bit ``mu``. bara: (B, parties*n) int32; barb: (B,) int32."""
     params = ck.params
     if not mk_fb_supported(params):
-        raise NotImplementedError(WIDE_DIGITS)
+        if ck.bk_fb_sel is None:
+            raise ValueError("a wide-digit cloud key needs the fbstream form")
+        tg64 = TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 64)
+        acc = rotate_streamed(None, ck.bk_fb_sel, bara, mk_fb64_geometry(params, ck.parties),
+                              tg64.decomp_length, tg64.log2_base, tg64.offset,
+                              stepvec=(int(mu), barb))
+        return rlwe_extract_sample(RLweSample(acc))
     geom = mk_fb_geometry(params, ck.parties)
     tg32 = TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 32)
     args = (geom, tg32.decomp_length, tg32.log2_base, tg32.offset)

@@ -11,13 +11,20 @@ The AKÖ 4-part TGSW sample is packed as a standard TGSW kernel tensor
 (part_4[i], part_1[i]), so the 3gen external product is the single-key one
 and the blind rotate is one chain of parties*n CMux steps, party-major.
 
-The 64-bit key is rounded to its hi word (``hi_round_samples``) and runs as
-a 32-bit F-block key: ``fblock`` expands it (``bk_fb``, the Hopper kernel of
+At the sets with byte-sized digits (2 to 8 parties, ``mk_fb_supported``) the
+64-bit key is rounded to its hi word (``hi_round_samples``) and runs as a
+32-bit F-block key: ``fblock`` expands it (``bk_fb``, the Hopper kernel of
 ops/cuda_rotate.blind_rotate_cuda), ``fbstream`` keeps the compact lines
 (``bk_fb_sel``, 256x smaller; the compact-key kernel
-ops/cuda_rotate.blind_rotate_sel_cuda). Keygen products run on the host in
-exact numpy (ops/hostmath) at 64 bits; the finished keys move to ``device``
-(None: the card, core/device.resolve_device; ``"cpu"``: the CPU).
+ops/cuda_rotate.blind_rotate_sel_cuda). At the wide-digit sets (16 parties
+and up: l = 1 or 2, Bg = 2^18 to 2^27) that rounding is noise-unsafe: every
+product multiplies the +-2^-33 rounding of a key entry by a digit of up to
+Bg/2. They take ``fbstream`` only, as the compact lines of the RAW 64-bit
+samples under ``mk_fb64_geometry`` (16 limb columns), and their rotate is the
+exact 64-bit torch-op scan (ops/fblock.blind_rotate_streamed). Keygen
+products run on the host in exact numpy (ops/hostmath) at 64 bits; the
+finished keys move to ``device`` (None: the card,
+core/device.resolve_device; ``"cpu"``: the CPU).
 """
 
 from __future__ import annotations
@@ -36,8 +43,6 @@ from ..lwe import LweKey, lwe_keygen
 from ..ops import fblock, hostmath
 from ..rlwe import RLweKey, extract_lwe_key, rlwe_keygen
 
-WIDE_DIGITS = ("sets with l*log2(Bg) > 31 or Bg > 2^8 (16 parties and up) need the exact "
-               "64-bit streamed scan, which is not ported yet (ROADMAP.md, slice 4 queue)")
 EXPANDED_KEY_LIMIT = 10 * 2**30  # largest expanded F-block key default_forms picks
 
 
@@ -127,7 +132,11 @@ class MKCloudKey:
     compact lines, int8 (``fblock.build_sel_key``): the compact kernel
     layout (parties*n, 8, R, 2N) on a CUDA device, which
     csrc/blind_rotate_sel.cu reads, ``fblock.build_sel``'s
-    (parties*n, R, 2N, 8) on the CPU. ``bk_samples``: the raw 64-bit
+    (parties*n, R, 2N, 8) on the CPU. At a wide-digit set ``bk_fb_sel``
+    holds the lines of the raw 64-bit samples instead, in ``build_sel``'s
+    layout (parties*n, R, 2N, 16) on every device: no kernel reads them, and
+    it is the layout the scan's expansion gathers from, so the card holds
+    the key once and turns nothing back. ``bk_samples``: the raw 64-bit
     TGSW samples (parties*n, l, 2, 2, N) on the host, with ``keep_samples``.
     ``ks_mat``: (K, parties*(n+1)*4) int8 limb tables, zero columns up to a
     multiple of 8 (torch._int_mm).
@@ -149,8 +158,8 @@ def mk_fb_supported(params: SchemeParams3Gen) -> bool:
 
 
 def mk_fb_stream_supported(params: SchemeParams3Gen) -> bool:
-    """The compact form serves every 3gen set in the JAX package; here only
-    the hi-word sets (mk_fb_supported) run it."""
+    """The compact form serves every 3gen set: hi-word 32-bit lines when
+    ``mk_fb_supported``, else the exact 64-bit lines."""
     return params.rlwe_bits == 64
 
 
@@ -160,6 +169,14 @@ def mk_fb_geometry(params: SchemeParams3Gen, parties: int) -> fblock.FBlockGeome
     return fblock.fblock_geometry(
         parties * params.lwe_size, params.rlwe_polynomial_degree,
         params.rlwe_mask_size, params.gsw_decomp_length, 32, 0)
+
+
+def mk_fb64_geometry(params: SchemeParams3Gen, parties: int) -> fblock.FBlockGeometry:
+    """Exact 64-bit F-block geometry (16 limb columns, none dropped): the
+    compact form of the wide-digit sets, whose key is not rounded."""
+    return fblock.fblock_geometry(
+        parties * params.lwe_size, params.rlwe_polynomial_degree,
+        params.rlwe_mask_size, params.gsw_decomp_length, 64, 0)
 
 
 def hi_round_samples(samples: np.ndarray) -> np.ndarray:
@@ -173,11 +190,12 @@ def hi_round_samples(samples: np.ndarray) -> np.ndarray:
 
 def default_forms(params: SchemeParams3Gen, parties: int) -> tuple:
     """The fast form the JAX package picks (apps/mk_knn.py): the expanded
-    key while it is at most 10 GiB, else the compact one."""
+    key while it is at most 10 GiB, else the compact one; the compact one
+    at every wide-digit set."""
     if not mk_fb_stream_supported(params):
         raise ValueError("3gen keys need a 64-bit ring torus")
     if not mk_fb_supported(params):
-        return ("fbstream",)  # mk_cloud_keygen raises: WIDE_DIGITS
+        return ("fbstream",)
     g = mk_fb_geometry(params, parties)
     fb_bytes = g.n * g.D * g.R * g.bs * len(g.cols) * g.bs
     return ("fblock",) if fb_bytes <= EXPANDED_KEY_LIMIT else ("fbstream",)
@@ -203,8 +221,9 @@ def _check_forms(params: SchemeParams3Gen, forms) -> None:
                          "(the conv backend is not ported)")
     if not mk_fb_stream_supported(params):
         raise ValueError("3gen keys need a 64-bit ring torus")
-    if not mk_fb_supported(params):
-        raise NotImplementedError(WIDE_DIGITS)
+    if "fblock" in forms and not mk_fb_supported(params):
+        raise ValueError("the fblock form needs l*log2(Bg) <= 31 and Bg <= 2^8: a wide-digit "
+                         "set takes forms=('fbstream',)")
 
 
 def cloud_key_from_samples(params: SchemeParams3Gen, samples: np.ndarray,
@@ -212,17 +231,25 @@ def cloud_key_from_samples(params: SchemeParams3Gen, samples: np.ndarray,
                            device=None, keep_samples: bool = False) -> MKCloudKey:
     """Assemble the cloud key from the raw 64-bit samples (parties*n, l, 2,
     2, N) and the party-concatenated keyswitch tables (K, parties*(n+1)*4)
-    int8: round to the hi word, build ``forms`` and pad the tables, on
-    ``device``."""
+    int8: build ``forms`` and pad the tables, on ``device``. A hi-word set
+    is rounded to the hi word first; a wide-digit set keeps the raw 64-bit
+    samples' lines under ``mk_fb64_geometry``."""
     _check_forms(params, forms)
     device = resolve_device(device)
-    geom = mk_fb_geometry(params, parties)
-    hi = hi_round_samples(samples)
-    return MKCloudKey(
-        pad_table(ks_mat).to(device), parties, params,
-        bk_fb=fblock.build_rotate_key(hi, geom, device) if "fblock" in forms else None,
-        bk_samples=torch.from_numpy(samples) if keep_samples else None,
-        bk_fb_sel=fblock.build_sel_key(hi, geom, device) if "fbstream" in forms else None)
+    fb = sel = None
+    if mk_fb_supported(params):
+        geom = mk_fb_geometry(params, parties)
+        hi = hi_round_samples(samples)
+        if "fblock" in forms:
+            fb = fblock.build_rotate_key(hi, geom, device)
+        if "fbstream" in forms:
+            sel = fblock.build_sel_key(hi, geom, device)
+    else:
+        lines = fblock.build_sel(np.asarray(samples, np.int64), mk_fb64_geometry(params, parties))
+        sel = torch.from_numpy(lines).to(device)
+    return MKCloudKey(pad_table(ks_mat).to(device), parties, params, bk_fb=fb,
+                      bk_samples=torch.from_numpy(samples) if keep_samples else None,
+                      bk_fb_sel=sel)
 
 
 def mk_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[MKSecretKey],
@@ -232,8 +259,9 @@ def mk_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[MKSecretKe
     per-party bootstrapping parts, keyswitch keys.
 
     ``forms``: "fblock" builds the expanded key, "fbstream" the compact
-    lines, on ``device`` (``default_forms`` picks one by size). The XLA
-    "conv" form of the JAX package is not ported. Sampling and the exact
+    lines, on ``device`` (``default_forms`` picks one by size; a wide-digit
+    set takes "fbstream" only). The XLA "conv" form of the JAX package is
+    not ported. Sampling and the exact
     products run on the host."""
     parties = len(secret_keys)
     if parties > params.max_parties:

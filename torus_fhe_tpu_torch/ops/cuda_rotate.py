@@ -18,10 +18,15 @@ tile's key operand is a window of one reversed line, BK + WQ bytes a limb,
 from which the SM makes the MMA fragments itself. The int8 tensor-core rate
 bounds it; ``sel_plan`` is its launch plan, with tiles wide in coefficients,
 because each column tile reads every digit row from L2 once.
-``rotate`` and ``rotate_streamed`` are what the bootstraps call: CUDA tensors
-go to the kernel, CPU tensors to the plain version (ops/fblock
-``blind_rotate_fblock`` and ``blind_rotate_streamed``). There is no fallback:
-a CUDA tensor launches the kernel or raises, and a failed build raises.
+``rotate`` and ``rotate_streamed`` are what the bootstraps call. They pick
+the route from the parameters, before anything is launched
+(``takes_kernel_route``): a 32-bit geometry with digits of at most a byte
+sends CUDA tensors to the kernel and CPU tensors to the plain version
+(ops/fblock ``blind_rotate_fblock`` and ``blind_rotate_streamed``); a 64-bit
+geometry or wider digits (tfhe_80, the 3gen sets from 16 parties up) take the
+torch-op scan of ops/fblock on either device, as the JAX package runs them as
+an XLA scan outside Pallas. There is no fallback: on the kernel route a CUDA
+tensor launches the kernel or raises, and a failed build raises.
 
 Each kernel source is compiled with nvcc at first use into ``_build/`` next to
 this package (a shared library with a plain C interface, loaded with ctypes),
@@ -348,6 +353,14 @@ def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
     if bound >= 2**31:
         raise ValueError(f"R*N*2^(lb-1)*128 = {bound} is not below 2^31: the int32 "
                          f"sums of {geom} with log2_base={log2_base} are not exact")
+    _check_tensors(acc_a, key, bara, geom, stepvec, key_shapes, what, torch.int32)
+
+
+def _check_tensors(acc_a, key, bara, geom: FBlockGeometry, stepvec, key_shapes: tuple,
+                   what: str, dtype: torch.dtype) -> None:
+    """The checks every route shares: ``key`` int8 (steps,) + one of
+    ``key_shapes``, bara int32 (B, steps), an accumulator of ``dtype`` or a
+    stepvec, all on one device."""
     if key.dtype != torch.int8 or tuple(key.shape[1:]) not in key_shapes:
         shapes = " or ".join(f"(steps, {', '.join(map(str, s))})" for s in key_shapes)
         raise ValueError(f"{what} must be int8 {shapes}, got {key.dtype} {tuple(key.shape)}")
@@ -356,9 +369,8 @@ def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
                          f"{bara.dtype} {tuple(bara.shape)}")
     B = bara.shape[0]
     if stepvec is None:
-        if acc_a is None or acc_a.dtype != torch.int32 or \
-                tuple(acc_a.shape) != (B, geom.C, geom.N):
-            raise ValueError(f"acc must be int32 ({B}, {geom.C}, {geom.N})")
+        if acc_a is None or acc_a.dtype != dtype or tuple(acc_a.shape) != (B, geom.C, geom.N):
+            raise ValueError(f"acc must be {dtype} ({B}, {geom.C}, {geom.N})")
         tensors = (acc_a, key, bara)
     else:
         if acc_a is not None:
@@ -505,12 +517,54 @@ blind_rotate_sel_cuda.launches = 0
 blind_rotate_sel_cuda.grid = 0
 
 
+def takes_kernel_route(geom: FBlockGeometry, log2_base: int) -> bool:
+    """The route of a blind rotate, from its parameters alone: the kernels
+    implement the 32-bit torus with digits of at most a byte. A 64-bit
+    geometry or wider digits take the torch-op scan (``fblock``) on every
+    device, as the JAX package runs them outside its Pallas kernel."""
+    return geom.bits == 32 and log2_base <= 8
+
+
+def check_wide_args(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
+                    log2_base: int, stepvec, key_shapes: tuple) -> None:
+    """Raise ValueError on what the torch-op scan of the wide route does not
+    take: an accumulator whose dtype is not the torus dtype of ``geom``,
+    wrong shapes, a decomposition deeper than the torus, limb-block sums that
+    could leave int32, mixed devices. ``key``: int8 (steps,) + one of
+    ``key_shapes``."""
+    if geom.bits not in (32, 64):
+        raise ValueError(f"the torus is 32 or 64 bits wide, not {geom.bits}")
+    dtype = torch.int32 if geom.bits == 32 else torch.int64
+    if log2_base < 1 or decomp_length * log2_base > geom.bits or log2_base > 31:
+        raise ValueError(f"l={decomp_length} digits of {log2_base} bits do not fit "
+                         f"{geom.bits} bits")
+    if geom.R != decomp_length * geom.C:
+        raise ValueError(f"unsupported geometry {geom} for l={decomp_length}")
+    # every output of a limb block sums R*N products of two int8 limbs
+    if geom.R * geom.N * 128 * 128 >= 2**31:
+        raise ValueError(f"R*N*2^14 = {geom.R * geom.N * 2**14} is not below 2^31: the int32 "
+                         f"sums of {geom} are not exact")
+    if stepvec is not None and not -(1 << (geom.bits - 1)) <= int(stepvec[0]) < 1 << (geom.bits - 1):
+        raise ValueError(f"mu = {stepvec[0]} is no {geom.bits}-bit torus value")
+    _check_tensors(acc_a, key, bara, geom, stepvec, key_shapes, "the key", dtype)
+
+
 def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
            decomp_length: int, log2_base: int, offset: int,
            stepvec=None) -> torch.Tensor:
-    """Blind rotate over the expanded key on the tensors' device: the CUDA
-    kernel for CUDA tensors (the key in the kernel layout), the plain version
-    for CPU tensors (either layout); anything else raises."""
+    """Blind rotate over the expanded key on the tensors' device. The route
+    is chosen from (geom.bits, log2_base) before anything is launched
+    (``takes_kernel_route``): the kernel route is the CUDA kernel for CUDA
+    tensors (the key in the kernel layout) and its plain version for CPU
+    tensors (either layout); the wide route (64 bits, or digits wider than a
+    byte) is the torch-op scan ``fblock.blind_rotate_fblock`` on either
+    device. Anything else raises."""
+    if not takes_kernel_route(geom, log2_base):
+        check_wide_args(acc_a, fb, bara, geom, decomp_length, log2_base, stepvec,
+                        ((geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs),
+                         fblock.kernel_layout_shape(geom)))
+        return fblock.blind_rotate_fblock(acc_a, fb, bara, geom, decomp_length, log2_base,
+                                          offset, stepvec)
     if fb.device.type == "cuda":
         return blind_rotate_cuda(acc_a, fb, bara, geom, decomp_length, log2_base,
                                  offset, stepvec)
@@ -524,10 +578,18 @@ def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
 def rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
                     decomp_length: int, log2_base: int, offset: int,
                     stepvec=None) -> torch.Tensor:
-    """Blind rotate over the compact key on the tensors' device: the
-    compact-key kernel for CUDA tensors (the key in the compact kernel
-    layout), the plain ``blind_rotate_streamed`` for CPU tensors (either
-    layout); anything else raises."""
+    """Blind rotate over the compact key on the tensors' device, routed as
+    ``rotate`` is: the compact-key kernel for CUDA tensors (the key in the
+    compact kernel layout) and the plain ``blind_rotate_streamed`` for CPU
+    tensors (either layout) on the kernel route; the same
+    ``blind_rotate_streamed`` on either device on the wide route. Anything
+    else raises."""
+    if not takes_kernel_route(geom, log2_base):
+        check_wide_args(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec,
+                        ((geom.R, 2 * geom.N, len(geom.cols)),
+                         fblock.sel_kernel_layout_shape(geom)))
+        return fblock.blind_rotate_streamed(acc_a, sel, bara, geom, decomp_length, log2_base,
+                                            offset, stepvec=stepvec)
     if sel.device.type == "cuda":
         return blind_rotate_sel_cuda(acc_a, sel, bara, geom, decomp_length, log2_base,
                                      offset, stepvec)

@@ -17,7 +17,10 @@ device and the ``build_fblocks`` layout elsewhere.
 
 ``blind_rotate_fblock`` is the plain version of that kernel: word-exact, a
 Python loop over the n steps that runs on CPU and CUDA tensors alike, over
-either layout.
+either layout. It also serves what the kernels refuse, on either device: the
+64-bit torus (int64 accumulator, 16 limb columns) and gadget digits wider
+than a byte, which split into int8 limb blocks (``apply_fblock``). The JAX
+package runs those outside its Pallas kernel too (an XLA scan).
 ``blind_rotate_streamed`` runs the same chain from the compact lines
 (``build_sel``), expanded chunk by chunk (``expand_fblock_chunk``): the plain
 version of the compact-key kernel (ops/cuda_rotate.blind_rotate_sel_cuda,
@@ -32,6 +35,7 @@ reads both.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -145,8 +149,7 @@ def expand_fblock_chunk(sel_chunk: torch.Tensor, geom: FBlockGeometry) -> torch.
     if (R, two_n, ncols) != (geom.R, 2 * geom.N, len(geom.cols)):
         raise ValueError(f"lines {tuple(sel_chunk.shape)} do not match {geom}")
     D, bs = geom.D, geom.bs
-    idx = torch.as_tensor(_delta_index(geom)[seq_perm(D)].reshape(-1),
-                          device=sel_chunk.device)
+    idx = _step_plan(geom, sel_chunk.device).expand
     g = sel_chunk.index_select(2, idx).reshape(cs, R, D, bs, bs, ncols)
     g = g.permute(0, 2, 1, 3, 5, 4)  # (cs, m, R, p, ncols, q)
     return g.reshape(cs, D * R * bs, ncols * bs)
@@ -208,8 +211,7 @@ def expand_kernel_chunk(sel_chunk: torch.Tensor, geom: FBlockGeometry) -> torch.
     if (R, two_n, ncols) != (geom.R, 2 * geom.N, len(geom.cols)):
         raise ValueError(f"lines {tuple(sel_chunk.shape)} do not match {geom}")
     D, bs = geom.D, geom.bs
-    idx = torch.as_tensor(_delta_index(geom)[seq_perm(D)].reshape(-1),
-                          device=sel_chunk.device)
+    idx = _step_plan(geom, sel_chunk.device).expand
     g = sel_chunk.index_select(2, idx).reshape(cs, R, D, bs, bs, ncols)
     g = g.permute(0, 2, 5, 4, 1, 3)  # (cs, m, ncols, q, R, p)
     return g.reshape(cs, D, ncols * bs, R * bs)
@@ -280,58 +282,110 @@ def build_sel_key(samples: np.ndarray, geom: FBlockGeometry, device) -> torch.Te
     return torch.from_numpy(build(samples, geom)).to(device)
 
 
-def contract_rows_fblock(d8: torch.Tensor, fstep: torch.Tensor,
-                         geom: FBlockGeometry) -> torch.Tensor:
+class _StepPlan(NamedTuple):
+    """The index tensors of one geometry's step, on one device."""
+
+    expand: torch.Tensor     # (D*bs*bs,) line positions of the delta blocks, seq_perm order
+    gather: torch.Tensor     # (nb, D) digit block of (output block j, key block m); nb: none
+    col_poly: torch.Tensor   # (ncols,) output poly of each limb column
+    col_shift: torch.Tensor  # (ncols, 1) its shift
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(geom: FBlockGeometry, device: torch.device) -> _StepPlan:
+    nb, D = geom.nb, geom.D
+    # output block j pulls digit block i = (j - delta) mod D for each delta,
+    # valid only when i < nb; key block m of a step holds delta = seq_perm[m]
+    ji = (np.arange(nb)[:, None] - seq_perm(D)[None, :]) % D
+    dtype = torch.int32 if geom.bits <= 32 else torch.int64
+    return _StepPlan(
+        torch.as_tensor(_delta_index(geom)[seq_perm(D)].reshape(-1), device=device),
+        torch.as_tensor(np.where(ji < nb, ji, nb), device=device),
+        torch.tensor([p for p, _ in geom.cols], device=device),
+        torch.tensor([[s] for _, s in geom.cols], dtype=dtype, device=device))
+
+
+def _step_plan(geom: FBlockGeometry, device) -> _StepPlan:
+    """Built once per (geometry, device): a rotate of thousands of steps
+    must not copy its indices from the host at every step."""
+    return _cached_plan(geom._replace(n=0), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_shifts(nl: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(nl, 1, 1, 1) shifts 8m of the digit limb blocks."""
+    return 8 * torch.arange(nl, dtype=dtype, device=device).reshape(nl, 1, 1, 1)
+
+
+def contract_rows_fblock(d8: torch.Tensor, fstep: torch.Tensor, geom: FBlockGeometry,
+                         dtype: torch.dtype = torch.int32) -> torch.Tensor:
     """Contract int8 digit rows against one expanded F-block step.
 
     d8: (B, R, N) int8 rows (row r = digit level x poly); fstep:
-    (D*R*bs, ncols*bs) int8 in seq_perm order, or the same step in the kernel
-    layout (D, ncols*bs, R*bs), which is read through a transposed view.
-    Returns (B, C, N) int32: out[c] = sum_r rows_r (*) K_{r,c}, as one exact
-    int8 matmul.
+    (D*R*bs, ncols*bs) int8 in seq_perm order, which the product reads as it
+    lies, or the same step in the kernel layout (D, ncols*bs, R*bs), read
+    through a transposed copy. Returns (B, C, N) ``dtype`` (the accumulator's:
+    int32, or int64 on the 64-bit torus, where the shifts of up to 56 wrap):
+    out[c] = sum_r rows_r (*) K_{r,c}, as one exact int8 matmul whose limb
+    columns are shifted and summed onto their polys.
     """
     B = d8.shape[0]
     nb, D, bs, R, C = geom.nb, geom.D, geom.bs, geom.R, geom.C
     ncols = len(geom.cols)
-    dev = d8.device
-    # output block j pulls digit block i = (j - delta) mod D for each delta,
-    # valid only when i < nb
-    ji = (np.arange(nb)[:, None] - np.arange(D)[None, :]) % D  # (j, delta)
-    valid = torch.as_tensor(ji < nb, device=dev)
-    ji_safe = torch.as_tensor(np.where(ji < nb, ji, 0), device=dev)
-    g = d8.reshape(B, R, nb, bs)[:, :, ji_safe, :]  # (B, R, j, delta, bs)
-    g = g * valid[None, None, :, :, None].to(torch.int8)
-    dexp = g.movedim(2, 1).reshape(B * nb, R * D * bs)
-    perm = torch.as_tensor(seq_perm(D), device=dev)  # an involution
-    if fstep.dim() == 3:  # kernel layout: (ncols*bs, R*D*bs) is fmat transposed
-        fmat = fstep.reshape(D, ncols * bs, R, bs)[perm].permute(1, 2, 0, 3).reshape(
-            ncols * bs, R * D * bs).t()
+    plan = _step_plan(geom, d8.device)
+    # the digit blocks are gathered and laid out as 8-byte words: byte by byte
+    # the gather alone took 0.27 ms a step at the 16-party shapes on an H100
+    word = 8 if bs % 8 == 0 else 1
+    if not d8.is_contiguous() or d8.storage_offset() % word:
+        d8 = d8.clone(memory_format=torch.contiguous_format)
+    blocks = d8.reshape(B, R, nb, bs)
+    if word == 8:
+        blocks = blocks.view(torch.int64)
+    blocks = torch.nn.functional.pad(blocks, (0, 0, 0, 1))  # block nb: zeros
+    g = blocks[:, :, plan.gather]  # (B, R, j, m, bs / word)
+    dexp = g.permute(0, 2, 3, 1, 4).reshape(B * nb, D * R * bs // word).view(torch.int8)
+    if fstep.dim() == 3:  # kernel layout: (ncols*bs, D*R*bs) is fmat transposed
+        fmat = fstep.permute(1, 0, 2).reshape(ncols * bs, D * R * bs).t()
     else:
-        fmat = fstep.reshape(D, R, bs, -1)[perm].movedim(0, 1).reshape(R * D * bs, -1)
+        fmat = fstep
     prod = poly.int8_matmul(dexp, fmat).reshape(B, nb, ncols, bs)
-    comb = torch.zeros((B, nb, C, bs), dtype=torch.int32, device=dev)
-    for ci, (p, shift) in enumerate(geom.cols):
-        comb[:, :, p] += prod[:, :, ci] << shift
+    comb = torch.zeros((B, nb, C, bs), dtype=dtype, device=d8.device)
+    # the shifts are of ``dtype``: an int64 one promotes the int32 products as it shifts them
+    comb.index_add_(2, plan.col_poly, prod << plan.col_shift.to(dtype))
     return comb.movedim(1, 2).reshape(B, C, geom.N)
 
 
 def apply_fblock(t: torch.Tensor, fstep: torch.Tensor, geom: FBlockGeometry,
                  decomp_length: int, log2_base: int, offset: int) -> torch.Tensor:
     """delta[c] = sum_r g(t)_r (*) K_{r,c}: gadget-decompose a (B, C, N)
-    input and contract against one expanded F-block step. Digits must fit a
-    byte (log2_base <= 8), as in the kernel."""
+    input and contract against one expanded F-block step, in t's dtype.
+
+    Digits wider than a byte split into int8 limb blocks
+    (``poly.digits_to_i8_rows``) whose products are shifted by 8m and summed.
+    The blocks are stacked along the batch, so a step is one matmul whatever
+    the digit width; integer sums, so the words are those of one contraction
+    per block."""
     B, C, N = t.shape
     digits = poly.decompose(t, decomp_length, log2_base, geom.bits, offset)
     rows = digits.transpose(-3, -2).reshape(B, geom.R, N)  # rows r = (level, poly)
-    return contract_rows_fblock(rows.to(torch.int8), fstep, geom)
+    blocks = poly.digits_to_i8_rows(rows, log2_base)
+    if len(blocks) == 1:
+        return contract_rows_fblock(blocks[0], fstep, geom, t.dtype)
+    nl = len(blocks)
+    delta = contract_rows_fblock(torch.stack(blocks).reshape(nl * B, geom.R, N), fstep, geom,
+                                 t.dtype).reshape(nl, B, C, N)
+    # an int32 sum is taken in int64, then wraps
+    return (delta << _limb_shifts(nl, t.dtype, t.device)).sum(0).to(t.dtype)
 
 
 def stepvec_acc0(mu: int, barb: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
     """The gate test vector X^-barb * (0, ..., 0, [mu..mu]) as a (B, C, N)
-    int32 accumulator: mask polys zero, the body the rotated constant."""
+    accumulator in the torus dtype of ``geom`` (int32, or int64 at 64 bits):
+    mask polys zero, the body the rotated constant."""
     B = barb.shape[0]
-    tv = torch.full((B, geom.N), int(mu), dtype=torch.int32, device=barb.device)
-    acc = torch.zeros((B, geom.C, geom.N), dtype=torch.int32, device=barb.device)
+    dtype = torch.int32 if geom.bits <= 32 else torch.int64
+    tv = torch.full((B, geom.N), int(mu), dtype=dtype, device=barb.device)
+    acc = torch.zeros((B, geom.C, geom.N), dtype=dtype, device=barb.device)
     acc[:, geom.C - 1] = poly.mul_by_monomial(tv, -barb.to(torch.int64))
     return acc
 
@@ -341,14 +395,13 @@ def blind_rotate_fblock(acc_a, fb: torch.Tensor, bara: torch.Tensor,
                         offset: int, stepvec=None) -> torch.Tensor:
     """The CMux chain over the F-block key, one Python step at a time.
 
-    acc_a: (B, C, N) int32, or None with ``stepvec=(mu, barb)`` (barb (B,)
-    int32) to start from the gate test vector; fb: (n, D*R*bs, ncols*bs)
-    int8, or the kernel layout (n, D, ncols*bs, R*bs); bara: (B, n) int32.
-    Per step: acc += F-block product of the
-    decomposed (X^bara - 1) * acc. Returns (B, C, N) int32.
+    acc_a: (B, C, N) in the torus dtype of ``geom`` (int32, or int64 at 64
+    bits), or None with ``stepvec=(mu, barb)`` (barb (B,) int32) to start
+    from the gate test vector; fb: (n, D*R*bs, ncols*bs) int8, or the kernel
+    layout (n, D, ncols*bs, R*bs); bara: (B, n) int32. Per step: acc +=
+    F-block product of the decomposed (X^bara - 1) * acc, with digits of any
+    width (``apply_fblock``). Returns (B, C, N) in the same dtype.
     """
-    if log2_base > 8:
-        raise ValueError("the F-block rotate takes digits of at most 8 bits")
     acc = stepvec_acc0(stepvec[0], stepvec[1], geom) if acc_a is None else acc_a
     for s in range(fb.shape[0]):
         rot = poly.mul_by_monomial(acc, bara[:, s])
@@ -362,28 +415,30 @@ def blind_rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor,
                           offset: int, *, chunk: int = 64, stepvec=None) -> torch.Tensor:
     """The CMux chain over the COMPACT key, expanding F-blocks chunk by
     chunk: the plain version of the compact-key kernel
-    (ops/cuda_rotate.blind_rotate_sel_cuda).
+    (ops/cuda_rotate.blind_rotate_sel_cuda), and the route of the 64-bit
+    torus and of digits wider than a byte, which no kernel takes.
 
     sel: (steps, R, 2N, ncols) int8 (``build_sel``), or the compact kernel
     layout (steps, ncols, R, 2N), which is turned back chunk by chunk; bara:
-    (B, steps) int32;
-    acc_a: (B, C, N) int32, or None with ``stepvec=(mu, barb)``. The steps
-    are padded to a multiple of ``chunk`` with identity steps (zero lines,
-    bara = 0), and each chunk's expansion goes through
-    ``blind_rotate_fblock``. Returns (B, C, N) int32, word-equal to
+    (B, steps) int32; acc_a: (B, C, N) in the torus dtype of ``geom``, or
+    None with ``stepvec=(mu, barb)``. Each chunk of at most ``chunk`` steps is
+    expanded and goes through ``blind_rotate_fblock`` (the JAX package pads
+    the steps to whole chunks with identity steps for its scan; a Python loop
+    needs none, and the words are the same); one expanded chunk is
+    alive at a time. On a CUDA device a chunk is expanded into the kernel
+    layout, whose steps give ``torch._int_mm`` the key side with its
+    reduction index contiguous: cuBLASLt has its tensor-core int8 kernels
+    for that form only (a row-major key side ran at 6% of the card's int8
+    peak on an H100). Returns (B, C, N), word-equal to
     ``blind_rotate_fblock`` over the expanded key.
     """
-    steps, B = sel.shape[0], bara.shape[0]
-    spad = (-steps) % chunk
-    if spad:
-        sel = torch.cat([sel, sel.new_zeros((spad,) + tuple(sel.shape[1:]))])
-        bara = torch.cat([bara, bara.new_zeros((B, spad))], dim=1)
+    steps = sel.shape[0]
     acc = stepvec_acc0(stepvec[0], stepvec[1], geom) if acc_a is None else acc_a
     kernel_layout = tuple(sel.shape[1:]) == sel_kernel_layout_shape(geom)
-    for s0 in range(0, steps + spad, chunk):
-        lines = sel[s0:s0 + chunk]
-        fb_k = expand_fblock_chunk(
-            from_sel_kernel_layout(lines, geom) if kernel_layout else lines, geom)
-        acc = blind_rotate_fblock(acc, fb_k, bara[:, s0:s0 + chunk], geom,
-                                  decomp_length, log2_base, offset)
+    for s0 in range(0, steps, chunk):
+        lines, bara_k = sel[s0:s0 + chunk], bara[:, s0:s0 + chunk]
+        expand = expand_kernel_chunk if lines.is_cuda else expand_fblock_chunk
+        fb_k = expand(from_sel_kernel_layout(lines, geom) if kernel_layout else lines, geom)
+        acc = blind_rotate_fblock(acc, fb_k, bara_k, geom, decomp_length, log2_base, offset)
+        del fb_k
     return acc

@@ -2,7 +2,7 @@
 decomposition, an exact schoolbook oracle and the exact int8 matrix product.
 
 Port of the parts of torus_fhe_tpu/ops/poly.py that the F-block blind rotate
-and the keyswitch use. torch has no uint32 arithmetic, so the limb split works
+(digits of any width, 32- and 64-bit torus) and the keyswitch use. torch has no uint32 arithmetic, so the limb split works
 on the unsigned residue held in int64.
 """
 
@@ -131,6 +131,32 @@ def decompose(x: torch.Tensor, decomp_length: int, log2_base: int, bits: int,
     return torch.stack(digits, dim=-2)
 
 
+_LIMB_BIAS = -0x7F7F7F80  # 0x80808080 as int32: +128 on every byte, carries included
+
+
+def digits_to_i8_rows(digits: torch.Tensor, log2_base: int) -> list:
+    """Decomposition digits as int8 row blocks, split into byte limbs when
+    the base exceeds a byte.
+
+    digits: (..., N) int32 in [-B/2, B/2). Returns a list of int8 blocks of
+    the same shape with digits == sum_m blocks[m] << 8m exactly: one block at
+    log2_base <= 8, else the first (log2_base + 8) // 8 balanced signed limbs
+    of ``limb_split_signed(digits, 32)`` (a signed digit needs log2_base + 1
+    bits), so that callers shift-combine the blocks' products.
+
+    The balanced limbs of d are the bytes of d + 0x80808080, each less 128:
+    the bias turns every limb's borrow into a plain carry. So the split is
+    one add, one reinterpretation of the int32 words as bytes (little-endian,
+    on x86 hosts and on the card alike) and one flip of each byte's top bit.
+    """
+    if log2_base <= 8:
+        return [digits.to(torch.int8)]
+    nl = (log2_base + 8) // 8
+    biased = (digits.to(torch.int32) + _LIMB_BIAS).contiguous()
+    limbs = biased.view(torch.int8).reshape(digits.shape + (4,)) ^ -128
+    return [limbs[..., m] for m in range(nl)]
+
+
 # ---------------------------------------------------------------------------
 # Exact int8 matrix product
 # ---------------------------------------------------------------------------
@@ -148,8 +174,10 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     both devices run the same shapes; K and N must already be multiples of 8
     (callers pad their tables once). On CUDA a ``b`` whose reduction index
     is contiguous (the transpose of a contiguous matrix) is passed as it is:
-    cuBLASLt reads it so.
+    cuBLASLt reads it so. ``int8_matmul.calls`` counts the products, so that
+    a run can say how many a route made.
     """
+    int8_matmul.calls += 1
     M, K = a.shape
     if K % 8 or b.shape[1] % 8:
         raise ValueError(f"int8_matmul needs K and N multiples of 8, got {tuple(b.shape)}")
@@ -158,3 +186,6 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (b.is_cuda and b.t().is_contiguous()):
         b = b.contiguous()
     return torch._int_mm(a.contiguous(), b)[:M]
+
+
+int8_matmul.calls = 0

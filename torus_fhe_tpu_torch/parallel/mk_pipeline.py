@@ -28,11 +28,16 @@ from ..core.params import TGswParams
 from ..core.torus import decode_message
 from ..lwe import LweSample
 from ..mk.boot3gen import hi_word, mk_keyswitch
-from ..mk.keys3gen import WIDE_DIGITS, MKCloudKey, hi_round_samples, mk_fb_supported
+from ..mk.keys3gen import MKCloudKey, hi_round_samples, mk_fb_supported
 from ..ops import fblock
 from ..ops.cuda_rotate import rotate, rotate_streamed
 from ..rlwe import RLweSample, rlwe_extract_sample
 from .mesh import PARTY_AXIS, Mesh, join_stream, new_stream, use_stream
+
+HI_WORD_ONLY = ("the pipelined rotate serves the hi-word sets only (l*log2(Bg) <= 31 and "
+                "Bg <= 2^8), as in the JAX package: it rounds every key to its hi word, which "
+                "is noise-unsafe with wide digits. A wide-digit set runs the single-device "
+                "64-bit scan (mk.boot3gen)")
 
 
 def _local_geom(params) -> fblock.FBlockGeometry:
@@ -53,6 +58,8 @@ def _party_hi_samples(ck_samples, params, parties: int) -> np.ndarray:
     samples = (ck_samples.cpu().numpy() if isinstance(ck_samples, torch.Tensor)
                else np.asarray(ck_samples))
     n = params.lwe_size
+    if not mk_fb_supported(params):
+        raise NotImplementedError(HI_WORD_ONLY)
     if samples.shape[0] != parties * n:
         raise ValueError(f"{samples.shape[0]} samples, want parties*n = {parties * n}")
     return hi_round_samples(samples).reshape(parties, n, *samples.shape[1:])
@@ -110,7 +117,7 @@ def mk_blind_rotate_pipelined(shards, bara: torch.Tensor, barb: torch.Tensor, mu
     """
     _check_mesh(mesh, parties)
     if not mk_fb_supported(params):
-        raise NotImplementedError(WIDE_DIGITS)
+        raise NotImplementedError(HI_WORD_ONLY)
     if len(shards) != parties:
         raise ValueError(f"{len(shards)} key shards for {parties} parties")
     B, M, n = bara.shape[0], microbatches, params.lwe_size

@@ -1,0 +1,246 @@
+"""Key and ciphertext files (the cloud/client split).
+
+Port of torus_fhe_tpu/utils/serialize.py, numpy and torch only. It reads and
+writes the SAME files as the JAX package, so a key made by one package is
+used by the other: numpy ``.npz`` with a ``__meta__`` JSON blob (schema tag,
+kind, the parameter set as class name plus field values) and the arrays,
+either positional (``leaf_i``, in the order the JAX package's pytree flatten
+gives: dict entries by sorted key) or named (``k_<name>``, optional fields
+left out).
+
+A cloud key is stored compact: the keyswitch table and the raw TGSW samples.
+The rotate's key form is rebuilt from the samples on load, on ``device``
+(None: the card, core/device.resolve_device; ``"cpu"``: the CPU). This
+package builds the F-block forms only: a file that recorded the JAX
+package's ``conv`` form loads as ``fblock``, and a legacy file that holds
+conv kernels and no samples cannot be loaded. The keyswitch tables are
+written without the zero columns this package pads them with
+(boot/keyswitch.pad_table), so that the JAX package reads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+from ..core import params as P
+from ..core.device import resolve_device
+
+_SCHEMA = "torus_fhe_tpu.v1"
+NO_SAMPLES = ("{path} holds the conv kernels of the JAX package's scan backend and no raw "
+              "samples (a legacy file): this package builds the F-block forms from the samples "
+              "and has no conv backend. Save the key again with its samples")
+
+
+def _params_to_json(params) -> str:
+    d = {"__class__": type(params).__name__}
+    d.update(dataclasses.asdict(params))
+    return json.dumps(d)
+
+
+def _params_from_json(s: str):
+    d = json.loads(s)
+    return getattr(P, d.pop("__class__"))(**d)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _write(path: str, meta: dict, payload: dict, params) -> None:
+    if params is not None:
+        meta["params"] = _params_to_json(params)
+    payload["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **payload)
+
+
+def _read_meta(z) -> dict:
+    meta = json.loads(bytes(z["__meta__"]).decode())
+    if meta.get("schema") != _SCHEMA:
+        raise ValueError(f"schema {meta.get('schema')!r}, want {_SCHEMA!r}")
+    return meta
+
+
+def _leaves(tree) -> list:
+    """The array leaves of nested dicts, tuples and lists, in the JAX
+    package's flatten order: dict entries by sorted key, None left out."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return [tree]
+
+
+def save(path: str, kind: str, tree, params=None) -> None:
+    """Write the array leaves of ``tree`` (key, ciphertext batch, share
+    set...) by position."""
+    leaves = _leaves(tree)
+    payload = {f"leaf_{i}": _host(leaf) for i, leaf in enumerate(leaves)}
+    _write(path, {"schema": _SCHEMA, "kind": kind, "n_leaves": len(leaves)}, payload, params)
+
+
+def load(path: str):
+    """(kind, leaves as numpy arrays, params or None) of a positional file."""
+    with np.load(path) as z:
+        meta = _read_meta(z)
+        leaves = [z[f"leaf_{i}"] for i in range(meta["n_leaves"])]
+    params = _params_from_json(meta["params"]) if "params" in meta else None
+    return meta["kind"], leaves, params
+
+
+def save_named(path: str, kind: str, mapping: dict, params=None,
+               extra_meta: dict | None = None) -> None:
+    """Write a flat {name: array} mapping (None values left out), with
+    optional JSON-able ``extra_meta``."""
+    payload = {f"k_{name}": _host(v) for name, v in mapping.items() if v is not None}
+    meta = {"schema": _SCHEMA, "kind": kind, "names": [k[2:] for k in payload]}
+    if extra_meta:
+        meta["extra"] = extra_meta
+    _write(path, meta, payload, params)
+
+
+def load_named(path: str):
+    """(kind, {name: numpy array}, params or None, extra_meta) of a named
+    file; ValueError on a positional one."""
+    with np.load(path) as z:
+        meta = _read_meta(z)
+        if "names" not in meta:
+            raise ValueError(f"{path} is a positional-format file, not named")
+        arrs = {name: z[f"k_{name}"] for name in meta["names"]}
+    params = _params_from_json(meta["params"]) if "params" in meta else None
+    return meta["kind"], arrs, params, meta.get("extra", {})
+
+
+def _want_kind(kind: str, want: str, path: str) -> None:
+    if kind != want:
+        raise ValueError(f"{path} holds a {kind!r}, not a {want!r}")
+
+
+def _load_key_file(path: str, want: str):
+    """(arrays, params, extra) of a named cloud-key file with its raw
+    samples; ValueError on the legacy layouts (positional, or conv kernels
+    only)."""
+    try:
+        kind, arrs, params, extra = load_named(path)
+    except ValueError as err:
+        if "positional-format" not in str(err):
+            raise
+        _want_kind(load(path)[0], want, path)
+        raise ValueError(NO_SAMPLES.format(path=path)) from None
+    _want_kind(kind, want, path)
+    if "samples" not in arrs:
+        raise ValueError(NO_SAMPLES.format(path=path))
+    return arrs, params, extra
+
+
+def save_secret_key(path: str, sk) -> None:
+    save(path, "secret_key", sk.key, params=sk.params)
+
+
+def load_secret_key(path: str, device=None):
+    from ..boot.api import SecretKey
+    from ..lwe import LweKey
+
+    kind, leaves, params = load(path)
+    _want_kind(kind, "secret_key", path)
+    return SecretKey(params, LweKey(torch.tensor(np.asarray(leaves[0], np.int32),
+                                                device=resolve_device(device))))
+
+
+def save_cloud_key(path: str, ck) -> None:
+    """The compact cloud key: keyswitch table and raw TGSW samples (~20 MB at
+    the 128-bit sets). The F-block form is rebuilt from the samples on load."""
+    ks, bk = ck.keyswitch_key, ck.bootstrap_key
+    save_named(path, "cloud_key",
+               {"ks": ks.mat[:, :(ks.n_out + 1) * 4], "ks_meta": np.array([ks.n_in, ks.n_out]),
+                "samples": bk.samples},
+               params=ck.params, extra_meta={"forms": ["fblock"]})
+
+
+def load_cloud_key(path: str, forms=None, device=None):
+    """Load a cloud key and build its F-block key on ``device``. ``forms``:
+    ("fblock",), the only form of this package (default: the file's, with
+    conv read as fblock)."""
+    from ..boot.api import CloudKey
+    from ..boot.bootstrap import bootstrap_key_from_samples
+    from ..boot.keyswitch import KeyswitchKey, pad_table
+
+    arrs, params, extra = _load_key_file(path, "cloud_key")
+    forms = tuple(forms if forms is not None else extra.get("forms") or ("fblock",))
+    if not forms or set(forms) - {"fblock", "conv"}:
+        raise ValueError(f"forms {forms}: this package builds 'fblock' (and reads 'conv' as it)")
+    device = resolve_device(device)
+    bk = bootstrap_key_from_samples(torch.from_numpy(arrs["samples"].astype(np.int32)), params,
+                                    device)
+    mat = pad_table(torch.from_numpy(arrs["ks"].astype(np.int8))).to(device)
+    return CloudKey(params, bk, KeyswitchKey(mat, int(arrs["ks_meta"][0]),
+                                             int(arrs["ks_meta"][1])))
+
+
+def save_lwe(path: str, sample, params=None) -> None:
+    save(path, "lwe", {"a": sample.a, "b": sample.b}, params=params)
+
+
+def load_lwe(path: str, device=None):
+    from ..lwe import LweSample
+
+    kind, leaves, _ = load(path)
+    _want_kind(kind, "lwe", path)
+    device = resolve_device(device)
+    return LweSample(torch.tensor(np.asarray(leaves[0], np.int32), device=device),
+                     torch.tensor(np.asarray(leaves[1], np.int32), device=device))
+
+
+def save_mk_cloud_key(path: str, ck) -> None:
+    """The 3gen multikey cloud key, compact: the party-concatenated keyswitch
+    tables and the raw 64-bit samples (keygen with ``keep_samples=True``),
+    from which any form is rebuilt on load."""
+    if ck.bk_samples is None:
+        raise ValueError("the cloud key does not hold its raw samples: make it with "
+                         "keep_samples=True")
+    forms = [f for f, v in (("fblock", ck.bk_fb), ("fbstream", ck.bk_fb_sel)) if v is not None]
+    cols = ck.parties * (ck.params.lwe_size + 1) * 4
+    save_named(path, "mk_cloud_key", {"ks": ck.ks_mat[:, :cols], "samples": ck.bk_samples},
+               params=ck.params, extra_meta={"parties": ck.parties, "forms": forms})
+
+
+def load_mk_cloud_key(path: str, forms=None, device=None):
+    """Load a 3gen cloud key and build ``forms`` on ``device``: default the
+    file's forms without conv, else ``default_forms(params, parties)``. A
+    wide-digit set (16 parties and up) takes ("fbstream",), the lines of the
+    raw 64-bit samples."""
+    from ..mk import keys3gen
+
+    arrs, params, extra = _load_key_file(path, "mk_cloud_key")
+    parties = int(extra["parties"])
+    if forms is None:
+        forms = tuple(f for f in extra.get("forms", ()) if f != "conv") or \
+            keys3gen.default_forms(params, parties)
+    return keys3gen.cloud_key_from_samples(
+        params, arrs["samples"].astype(np.int64), torch.from_numpy(arrs["ks"].astype(np.int8)),
+        parties, tuple(forms), resolve_device(device), keep_samples=True)
+
+
+def save_share_set(path: str, repo) -> None:
+    keys = sorted(repo.shares)
+    save(path, "share_set",
+         {"tp": np.array([repo.t, repo.p]), "index": np.array(keys, np.int64),
+          "shares": np.stack([repo.shares[k] for k in keys])})
+
+
+def load_share_set(path: str):
+    from ..threshold.shares import ShareSet
+
+    kind, leaves, _ = load(path)
+    _want_kind(kind, "share_set", path)
+    index, shares, tp = leaves  # sorted keys: index, shares, tp
+    repo = ShareSet(int(tp[0]), int(tp[1]))
+    for (party, gid), s in zip(index.tolist(), shares):
+        repo.shares[(int(party), int(gid))] = s
+    return repo
