@@ -38,18 +38,40 @@ read just after:
   expansion against keyswitch); W3, bootsAND at tfhe_80 (Bg = 2^10);
 - S1, the key files (utils/serialize.py): the fast set's secret and cloud key
   and the 4-party 3gen cloud key are saved, loaded back onto the card, and
-  give the same gate words on the same ciphertexts.
+  give the same gate words on the same ciphertexts;
+- the circuits and apps, on keys made above (no keygen of their own): at
+  tfhe_128_tpu_fast after S1, every gate a launch of blind_rotate.cu, C1 the
+  word circuits (a 32-bit adder with carry and a 16-bit less_than at B=1024,
+  a bubble sort of six 16-bit words with a payload, eight sorts on the batch
+  axis, and a minimum), C2 knn_predict (8 train rows x 4 columns, 12-bit,
+  k=3) and its threshold tail (3 of 5, subset {1,2,4}, bounds 0.0125 to 1e-3)
+  on the card, C3 conv2d (6x6, two 3x3 filters in [-2, 2], 10-bit) and conv3d
+  (3^3, one 2^3 filter, 8-bit); on each multikey set's key right after its
+  gates, M1 the 3gen integer circuits (mk_2party_3gen, blind_rotate.cu: 8-bit
+  mk_add, mk_int_mul and a 4-word mk_bubble_sort, and mk_conv2d of a 3x3 image
+  with two 2x2 kernels, 6-bit; mk_4party_3gen, blind_rotate_sel.cu: 6-bit
+  mk_add and mk_int_mul), M2 volume_match (4 buys x 4 sells, 10-bit) and M3
+  mk_knn_predict (4 x 3, 8-bit, k=3, two test rows on the batch axis) with
+  mk_threshold_tail on the card (ring 1,040), both at mk_2party_3gen. Each
+  circuit phase runs with the launch counts at 0 and each launch's CUDA
+  events kept, must launch its set's kernel and no other (the tails none),
+  prints its bootstraps (a MUX counts two), launches, wall time and the
+  kernels' share of it, and is decrypted and held against a numpy oracle:
+  one wrong word fails the run.
 
 The compact kernel is also held against the expanded one on the full
 2-party key, each kernel against its plain version on one pipeline stage
 in explicit-accumulator mode, the party-sharded keyswitch and threshold
 decryption against their single-device forms, and the tiny-parameter mesh
 dry run (parallel/dryrun.py) runs on 8 slots. Each phase prints one line;
-the first failure ends the run with a non-zero code. The last four lines
-are the kernels' JSON record (each kernel's time and its plain version's at
-its main shape, beside the bound computed from the shapes; no single PyTorch
-call computes a CMux chain, so library_ms is null, and a yardstick line,
-labelled partial, gives n times the one torch._int_mm of a plain step), the
+the first failure ends the run with a non-zero code. The last five lines
+are the ``circuits`` record (per circuit phase: bootstraps, launches, wall
+seconds, bootstraps/s, kernel seconds and share), the kernels' JSON record
+(launches over every main path, the circuits included; each kernel's time
+and its plain version's at its main shape, beside the bound computed from
+the shapes; no single PyTorch call computes a CMux chain, so library_ms is
+null, and a yardstick line, labelled partial, gives n times the one
+torch._int_mm of a plain step), the
 ``routes`` record of the wide route (per set: no launch of either kernel, and
 its count of int8 products), the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": ...}. Without a CUDA device, or
@@ -100,6 +122,20 @@ WIDE_RAGGED = (1, 37)
 WIDE_SET = ("mk_16party_3gen", 16, 128)  # W2: registry name, parties, batch
 TFHE80_BATCH = 256  # W3
 S1_MK_SET = "mk_4party_3gen"  # the 3gen key that S1 saves and loads
+# circuit phases. C1 (tfhe_128_tpu_fast): (width, batch) of the adder, the
+# comparator and the minimum; (width, words, independent sorts) of the sort
+C1_ADD, C1_LESS, C1_MIN, C1_SORT = (32, 1024), (16, 1024), (16, 64), (16, 6, 8)
+C2_KNN = (8, 4, 12, 3)  # train rows, columns, width, k; one test row
+C3_CONV2D = (6, 2, 3, 10)  # image side, filters, kernel side, width; weights in [-2, 2]
+C3_CONV3D = (3, 1, 2, 8)  # volume side, filters, kernel side, width
+# M1 per 3gen set: (width, batch) of mk_add and mk_int_mul, (width, words,
+# batch) of mk_bubble_sort, (image side, channels, kernel side, width) of mk_conv2d
+M1_SETS = {"mk_2party_3gen": {"add": (8, 256), "mul": (8, 64), "sort": (8, 4, 8),
+                              "conv": (3, 2, 2, 6)},
+           "mk_4party_3gen": {"add": (6, 64), "mul": (6, 16)}}
+M2_VOLUME = (4, 4, 10)  # buys, sells, width (mk_2party_3gen)
+M3_KNN = (4, 3, 8, 3, 2)  # train rows, columns, width, k, test rows (mk_2party_3gen)
+CIRCUITS = {}  # phase -> its record: the "circuits" JSON line
 
 
 def log(phase: str, msg: str) -> None:
@@ -418,6 +454,8 @@ def main() -> int:
         f"== on the saved key word for word (B={MAIN_BATCH}), decrypts")
     del sk2, ck2, out2
 
+    single_key_circuits(sk, ck, gen, rng)
+
     del sk, ck, cx, cy, c1x, c1y, chain, out, plain_out, kern_out, acc0, t, bara, barb, sv
     del keys_by_dev, xs, ys, sh_out
     torch.cuda.empty_cache()
@@ -427,19 +465,23 @@ def main() -> int:
     sharded_ops(rng)
     routes = wide_route(dev, rng)
 
+    circ = {k: sum(rec["launches"][k] for rec in CIRCUITS.values())
+            for k in ("blind_rotate", "blind_rotate_sel")}
+    print(json.dumps({"circuits": CIRCUITS}))
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
          "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
-         + pipe["launches"]["blind_rotate"],
+         + pipe["launches"]["blind_rotate"] + circ["blind_rotate"],
          "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
         {"name": "blind_rotate_sel", "route": "cuda",
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate_sel.cu",
          "replaces": "torus_fhe_tpu/ops/fblock.py:339, torus_fhe_tpu/parallel/mk_pipeline.py:184",
-         "launches": mkr["launches"]["blind_rotate_sel"] + pipe["launches"]["blind_rotate_sel"],
+         "launches": mkr["launches"]["blind_rotate_sel"] + pipe["launches"]["blind_rotate_sel"]
+         + circ["blind_rotate_sel"],
          "max_abs_err": max(mkr["err"]["blind_rotate_sel"], pipe["err"]["blind_rotate_sel"]),
          "ms": mkr["ms"]["blind_rotate_sel"],
          "plain_ms": mkr["plain_ms"]["blind_rotate_sel"],
@@ -459,8 +501,8 @@ def mesh_devices(k: int) -> list:
 
 
 def reset_launches(cuda_rotate) -> None:
-    cuda_rotate.blind_rotate_cuda.launches = 0
-    cuda_rotate.blind_rotate_sel_cuda.launches = 0
+    for wrapper in (cuda_rotate.blind_rotate_cuda, cuda_rotate.blind_rotate_sel_cuda):
+        wrapper.launches = wrapper.rows = 0
 
 
 def max_diff(got, want) -> int:
@@ -636,6 +678,8 @@ def multikey(dev, rng) -> dict:
             if MAIN_SHAPE[kname] == name:
                 res["ms"][kname], res["plain_ms"][kname] = ms, plain_ms
                 res["bound_ms"][kname] = cuda_rotate.rotate_bound_ms(B, args[0], ck.bk_fb_sel.numel())
+        if name in M1_SETS:  # M1-M3: the circuits over this set's key, on its kernel
+            mk_circuits(name, params, sks, main_ck, kernel, rng)
         if name in PIPE_BATCH:  # for the pipelined phases: the raw samples and the tables
             res["kept"][name] = (params, sks, dataclasses.replace(ck, bk_fb=None, bk_fb_sel=None))
         del sks, ck, main_ck, ct, cy, ct_true, out, chain, t, bara, sv, compact, plain_out
@@ -1012,6 +1056,225 @@ def wide_route(dev, rng) -> dict:
     del sk, ck80, cx, cy, out, nand, fb
     torch.cuda.empty_cache()
     return routes
+
+
+def circuit_phase(name: str, kernel, fn):
+    """Run ``fn``, one circuit phase, with the kernels' counts at 0 and each
+    launch's CUDA events kept; record its bootstraps (ciphertexts
+    blind-rotated: a MUX counts two), launches, wall seconds and the share of
+    them the kernels ran, in CIRCUITS. ``kernel``: the one kernel the phase
+    must launch (None: no launch at all). Returns fn's result."""
+    from torus_fhe_tpu_torch.ops import cuda_rotate
+
+    wrappers = {"blind_rotate": cuda_rotate.blind_rotate_cuda,
+                "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda}
+    torch.cuda.synchronize()
+    reset_launches(cuda_rotate)
+    cuda_rotate.launch_events = []
+    try:
+        out, wall = sync_time(fn)
+    finally:
+        events, cuda_rotate.launch_events = cuda_rotate.launch_events, None
+    launches = {k: w.launches for k, w in wrappers.items()}
+    rows = sum(w.rows for w in wrappers.values())
+    if any(n for k, n in launches.items() if k != kernel) or (kernel and not launches[kernel]):
+        raise AssertionError(f"{name}: launches {launches}, want only {kernel}")
+    kernel_s = sum(start.elapsed_time(end) for start, end in events) / 1e3
+    CIRCUITS[name] = {"bootstraps": rows, "launches": launches, "wall_s": wall,
+                      "bootstraps_per_s": rows / wall, "kernel_s": kernel_s,
+                      "kernel_share": kernel_s / wall}
+    log(name, f"{rows} bootstraps, launches {launches}, {wall:.3f} s wall = "
+        f"{rows / wall:.1f} bootstraps/s; kernels {kernel_s:.3f} s = {kernel_s / wall:.3f} of it")
+    return out
+
+
+def expect(tag: str, got, want) -> None:
+    """Fail on any decrypted word that differs from the oracle's."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{tag}: shape {got.shape}, want {want.shape}")
+    wrong = int((got != want).sum())
+    if wrong:
+        raise AssertionError(f"{tag}: {wrong} wrong words of {want.size}")
+    log(tag, f"0 wrong of {want.size} against the oracle")
+
+
+def network_sort(keys: np.ndarray, width: int, payload=None):
+    """The bubble-sort network of the circuits in plain integers, column by
+    column: a pair swaps unless the sign bit of a - b (mod 2^width) is set."""
+    keys = keys.copy()
+    payload = None if payload is None else payload.copy()
+    mask = (1 << width) - 1
+    for col in range(keys.shape[1]):
+        for i in range(len(keys) - 1):
+            for j in range(len(keys) - 1 - i):
+                if not ((int(keys[j, col]) - int(keys[j + 1, col])) & mask) >> (width - 1) & 1:
+                    keys[[j, j + 1], col] = keys[[j + 1, j], col]
+                    if payload is not None:
+                        payload[[j, j + 1], col] = payload[[j + 1, j], col]
+    return keys, payload
+
+
+def single_key_circuits(sk, ck, gen, rng) -> None:
+    """C1 words, C2 KNN with its threshold tail, C3 conv2d / conv3d, at
+    tfhe_128_tpu_fast on the main path's keys: every bootstrap launches
+    blind_rotate.cu; every result is decrypted and held against numpy."""
+    from torus_fhe_tpu_torch.apps import cnn, knn
+    from torus_fhe_tpu_torch.boot import api
+    from torus_fhe_tpu_torch.circuits import words
+
+    enc = lambda v, w: words.int_encrypt(gen, sk, v, w)
+    K = "blind_rotate"
+
+    # C1. words: the reference's 32-bit adder, a comparator, a sort, a minimum
+    w, B = C1_ADD
+    a, b = rng.integers(0, 2**w, B), rng.integers(0, 2**w, B)
+    ca, cb = enc(a, w), enc(b, w)
+    cin = api.encrypt(gen, sk, torch.zeros(B, dtype=torch.bool))
+    out = circuit_phase(f"C1 add {w}-bit B={B}", K,
+                        lambda: words.add(ck, ca, cb, cin, w, with_carry=True))
+    expect("C1 add", words.int_decrypt(sk, out, w + 1), a + b)
+    w, B = C1_LESS
+    a, b = rng.integers(0, 2**(w - 1), B), rng.integers(0, 2**(w - 1), B)
+    ca, cb = enc(a, w), enc(b, w)
+    out = circuit_phase(f"C1 less_than {w}-bit B={B}", K, lambda: words.less_than(ck, ca, cb, w))
+    expect("C1 less_than", api.decrypt(sk, out).cpu().numpy(), a < b)
+    w, m, B = C1_SORT
+    keys = rng.integers(0, 2**(w - 1), (m, B))
+    pay = np.repeat(np.arange(m)[:, None], B, axis=1)
+    ck_words, cp_words = [enc(k, w) for k in keys], [enc(p, 3) for p in pay]
+    sort_phase = f"C1 bubble_sort {m} words {w}-bit + payload, {B} sorts"
+    got_w, (got_p,) = circuit_phase(sort_phase, K,
+                                    lambda: words.bubble_sort(ck, ck_words, w, [cp_words]))
+    want_k, want_p = network_sort(keys, w, pay)
+    expect("C1 bubble_sort keys", [words.int_decrypt(sk, x, w) for x in got_w], want_k)
+    expect("C1 bubble_sort payload", [words.int_decrypt(sk, x, 3) for x in got_p], want_p)
+    # the MUX share of one compare-swap of the sort: its comparator, then its
+    # four word MUXes (two of keys, two of payloads), each two rotates in turn
+    a_less, t_less = sync_time(lambda: words.less_than(ck, ck_words[0], ck_words[1], w))
+    pairs = [(ck_words[0], ck_words[1]), (ck_words[1], ck_words[0]),
+             (cp_words[0], cp_words[1]), (cp_words[1], cp_words[0])]
+    _, t_mux = sync_time(lambda: [words.mux_word(ck, a_less, x, y, w) for x, y in pairs])
+    CIRCUITS[sort_phase]["mux_share"] = t_mux / (t_less + t_mux)
+    log("C1 bubble_sort", f"one compare-swap: less_than {t_less * 1e3:.1f} ms, 4 word MUXes "
+        f"{t_mux * 1e3:.1f} ms = {t_mux / (t_less + t_mux):.3f} of it")
+    w, B = C1_MIN
+    a, b = rng.integers(0, 2**(w - 1), B), rng.integers(0, 2**(w - 1), B)
+    ca, cb = enc(a, w), enc(b, w)
+    out = circuit_phase(f"C1 minimum {w}-bit B={B}", K, lambda: words.minimum(ck, ca, cb, w))
+    expect("C1 minimum", words.int_decrypt(sk, out, w), np.minimum(a, b))
+
+    # C2. KNN: one test row against the train rows, then the threshold tail
+    rows, cols, w, k = C2_KNN
+    tr_f, tr_l = rng.integers(0, 200, (rows, cols)), rng.integers(0, 2, rows)
+    te_f = rng.integers(0, 200, (1, cols))
+    feats, labs = knn.encrypt_dataset(gen, sk, tr_f, tr_l, w)
+    test = enc(te_f[0], w)
+    decision = circuit_phase(f"C2 knn_predict {rows}x{cols} {w}-bit k={k}", K,
+                             lambda: knn.knn_predict(ck, feats, labs, test, k, w))
+    bit = int(api.decrypt(sk, decision).item())
+    expect("C2 knn_predict", bit, knn.plaintext_oracle(tr_f, tr_l, te_f, k, w)[0])
+    tail = circuit_phase("C2 threshold_tail (3 of 5, {1,2,4})", None,
+                         lambda: knn.threshold_tail(decision, sk, gen))
+    expect("C2 threshold_tail", [r["bit"] for r in tail], [bit] * 4)
+
+    # C3. CNN layers
+    side, F, ks, w = C3_CONV2D
+    image, kernels = rng.integers(0, 8, (side, side)), rng.integers(-2, 3, (F, ks, ks))
+    cimg = enc(image, w)
+    out = circuit_phase(f"C3 conv2d {side}x{side} {F} filters {ks}x{ks} {w}-bit", K,
+                        lambda: cnn.conv2d(ck, cimg, kernels, w))
+    expect("C3 conv2d", words.int_decrypt(sk, out, w),
+           cnn.conv2d_reference(image, kernels) % (1 << w))
+    side, F, ks, w = C3_CONV3D
+    vol, kernels = rng.integers(0, 8, (side,) * 3), rng.integers(-2, 3, (F, ks, ks, ks))
+    cvol = enc(vol, w)
+    out = circuit_phase(f"C3 conv3d {side}^3 {F} filter {ks}^3 {w}-bit", K,
+                        lambda: cnn.conv3d(ck, cvol, kernels, w))
+    expect("C3 conv3d", words.int_decrypt(sk, out, w),
+           cnn.conv3d_reference(vol, kernels) % (1 << w))
+
+
+def mk_circuits(name: str, params, sks, ck, kernel: str, rng) -> None:
+    """M1 (and at mk_2party_3gen M2, M3): the 3gen integer circuits, volume
+    matching and multikey KNN with its threshold tail, on the set's key in
+    its default form, each decrypted and held against numpy."""
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.apps import cnn, knn, mk_knn
+    from torus_fhe_tpu_torch.apps import volume_matching as vm
+    from torus_fhe_tpu_torch.mk import gates3gen as g3
+
+    keys = [sk.lwe for sk in sks]
+    gen = torch.Generator().manual_seed(SEED + 100 + ck.parties)
+    enc = lambda v, w: mk.mk_int_encrypt(gen, keys, v, w, params)
+    dec = lambda x, w: mk.mk_int_decrypt(keys, x, w) % (1 << w)
+    tag = f"{ck.parties} parties"
+    spec = M1_SETS[name]
+
+    w, B = spec["add"]
+    a, b = rng.integers(0, 2**w, B), rng.integers(0, 2**w, B)
+    ca, cb = enc(a, w), enc(b, w)
+    zero = g3.mk_word_constant(ck, ca, False)
+    out = circuit_phase(f"M1 mk_add {w}-bit B={B}, {tag}", kernel,
+                        lambda: g3.mk_add(ck, ca, cb, zero, w, with_carry=True))
+    expect(f"M1 mk_add, {tag}", dec(out, w + 1), a + b)
+    w, B = spec["mul"]
+    a, b = rng.integers(0, 2**w, B), rng.integers(0, 2**w, B)
+    ca, cb = enc(a, w), enc(b, w)
+    zero = g3.mk_word_constant(ck, ca, False)
+    out = circuit_phase(f"M1 mk_int_mul {w}-bit B={B}, {tag}", kernel,
+                        lambda: g3.mk_int_mul(ck, ca, cb, zero, w))
+    expect(f"M1 mk_int_mul, {tag}", dec(out, w), a * b % (1 << w))
+    if "sort" in spec:
+        w, m, B = spec["sort"]
+        vals = rng.integers(0, 2**(w - 1), (m, B))
+        cw = [enc(v, w) for v in vals]
+        got = circuit_phase(f"M1 mk_bubble_sort {m} words {w}-bit, {B} sorts, {tag}", kernel,
+                            lambda: g3.mk_bubble_sort(ck, cw, w))
+        expect(f"M1 mk_bubble_sort, {tag}", [dec(x, w) for x in got], network_sort(vals, w)[0])
+    if "conv" in spec:
+        side, C, ks, w = spec["conv"]
+        image, kernels = rng.integers(0, 4, (side, side)), rng.integers(0, 4, (C, ks, ks))
+        cimg, cker = enc(image, w), enc(kernels, w)
+        cimg = mk.MKLweSample(cimg.a.movedim(0, 2), cimg.b.movedim(0, 2))  # (H, W, width, ...)
+        cker = mk.MKLweSample(cker.a.movedim(0, 3), cker.b.movedim(0, 3))  # (C, KH, KW, width, ...)
+        zero1 = g3.mk_gate_constant(ck, torch.tensor(False))
+        out = circuit_phase(f"M1 mk_conv2d {side}x{side} {C} channels {ks}x{ks} {w}-bit, {tag}",
+                            kernel, lambda: g3.mk_conv2d(ck, cimg, cker, zero1, 1, w))
+        out = mk.MKLweSample(out.a.movedim(3, 0), out.b.movedim(3, 0))
+        expect(f"M1 mk_conv2d, {tag}", dec(out, w), cnn.conv2d_reference(image, kernels) % (1 << w))
+    if ck.parties != 2:
+        return
+
+    # M2. volume matching
+    nb, ns, w = M2_VOLUME
+    buys, sells = rng.integers(1, 100, nb), rng.integers(1, 100, ns)
+    cbuy, csell = enc(buys, w), enc(sells, w)
+    zero = mk.mk_encrypt(gen, keys, torch.tensor(False), params)
+    one = mk.mk_encrypt(gen, keys, torch.tensor(True), params)
+    mb, ms = circuit_phase(f"M2 volume_match {nb} buys x {ns} sells {w}-bit, {tag}", kernel,
+                           lambda: vm.volume_match(ck, cbuy, csell, zero, one, w))
+    want_b, want_s = vm.match_oracle(buys, sells, w)
+    expect(f"M2 volume_match, {tag}", np.concatenate([dec(mb, w), dec(ms, w)]),
+           np.concatenate([want_b, want_s]))
+
+    # M3. multikey KNN, every test row on one batch axis, then the tail per row
+    rows, cols, w, k, T = M3_KNN
+    tr_f, tr_l = rng.integers(0, 40, (rows, cols)), rng.integers(0, 2, rows)
+    te_f = rng.integers(0, 40, (T, cols))
+    feats, labs = mk_knn.mk_encrypt_dataset(gen, keys, tr_f, tr_l, w, params)
+    tests = enc(te_f, w)
+    decision = circuit_phase(f"M3 mk_knn_predict {rows}x{cols} {w}-bit k={k}, {T} test rows, "
+                             f"{tag}", kernel,
+                             lambda: mk_knn.mk_knn_predict_rows(ck, feats, labs, tests, k, w))
+    bits = mk.mk_decrypt(keys, decision).cpu().numpy().astype(np.int64)
+    expect(f"M3 mk_knn_predict, {tag}", bits, knn.plaintext_oracle(tr_f, tr_l, te_f, k, w))
+    tails = circuit_phase(f"M3 mk_threshold_tail (ring {ck.parties * params.lwe_size}), {T} rows",
+                          None, lambda: [mk_knn.mk_threshold_tail(
+                              mk.MKLweSample(decision.a[i], decision.b[i]), keys, gen)
+                              for i in range(T)])
+    expect(f"M3 mk_threshold_tail, {tag}", [[r["bit"] for r in t] for t in tails],
+           [[b] * 4 for b in bits])
 
 
 def sharded_ops(rng) -> None:

@@ -183,7 +183,10 @@ def test_package_never_imports_jax():
             " or k.startswith('torus_fhe_tpu.') or k == 'torus_fhe_tpu')\n"
             "assert not bad, bad\n"
             "assert {'torus_fhe_tpu_torch.parallel.mk_pipeline', 'torus_fhe_tpu_torch.parallel.sharded',"
-            " 'torus_fhe_tpu_torch.threshold.decrypt', 'torus_fhe_tpu_torch.utils.serialize'}"
+            " 'torus_fhe_tpu_torch.threshold.decrypt', 'torus_fhe_tpu_torch.utils.serialize',"
+            " 'torus_fhe_tpu_torch.circuits.words', 'torus_fhe_tpu_torch.apps.knn',"
+            " 'torus_fhe_tpu_torch.apps.cnn', 'torus_fhe_tpu_torch.apps.volume_matching',"
+            " 'torus_fhe_tpu_torch.apps.mk_knn', 'torus_fhe_tpu_torch.threshold.convert'}"
             " <= set(sys.modules)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,15 +1,19 @@
-"""PyTorch + CUDA port of torus_fhe_tpu (single-key gate bootstrap slice).
+"""PyTorch + CUDA port of torus_fhe_tpu.
 
-Module paths mirror the JAX package: ``core/`` (params, torus, rng),
-``ops/`` (poly, fblock, hostmath, and the Hopper blind-rotate kernel in
-``ops/cuda_rotate.py`` + ``csrc/blind_rotate.cu``), ``lwe``/``rlwe``/``tgsw``,
-``boot/`` (keyswitch, bootstrap, gates, api), and ``bridge`` (key material
-from the JAX package, as numpy arrays).
+Module paths mirror the JAX package: ``core/`` (params, torus, rng, device),
+``ops/`` (poly, fblock, hostmath, and the Hopper blind-rotate kernels in
+``ops/cuda_rotate.py`` + ``csrc/``), ``lwe``/``rlwe``/``tgsw``, ``boot/``
+(keyswitch, bootstrap, gates, api), ``mk/`` (3rd-gen multikey keys, gates and
+integer circuits), ``threshold/`` (shares, decryption, the LWE -> ring-LWE
+embedding), ``circuits/`` (single-key word circuits), ``apps/`` (KNN, CNN,
+volume matching, multikey KNN), ``parallel/`` (meshes of devices),
+``utils/serialize`` (the JAX package's key files), and ``bridge`` (key
+material from the JAX package, as numpy arrays).
 
 Everything is plain functions on tensors, batch-first, with the JAX package's
 layouts: an LWE sample is ``a (..., n)``, ``b (...,)``; an RLWE sample is
 ``(..., k+1, N)`` with the body last; torus values are int32 wrapping mod 2^32.
-CPU tensors run the plain PyTorch versions; CUDA tensors run the kernel.
+CPU tensors run the plain PyTorch versions; CUDA tensors run the kernels.
 
 This package imports torch and numpy, never jax.
 """

@@ -418,6 +418,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# While a caller holds a list here, every launch appends its (start, end) CUDA
+# events, recorded on the launch's stream: the caller sums the kernels' time.
+launch_events = None
+
+
 def _launch(name: str, plan: RotatePlan, acc_a, key, bara, geom: FBlockGeometry,
             decomp_length: int, log2_base: int, offset: int, stepvec) -> tuple:
     """One cooperative launch of library ``name`` under ``plan`` on the
@@ -427,14 +432,21 @@ def _launch(name: str, plan: RotatePlan, acc_a, key, bara, geom: FBlockGeometry,
     out = torch.empty((B, geom.C, geom.N), dtype=torch.int32, device=key.device)
     key, bara, acc_a, barb, mu = _launch_args(acc_a, key, bara, stepvec)
     grid = ctypes.c_int(0)
+    events = None if launch_events is None else [torch.cuda.Event(enable_timing=True)
+                                                 for _ in range(2)]
     with torch.cuda.device(key.device):
         dig = torch.empty(plan.scratch_bytes, dtype=torch.int8, device=key.device)
+        if events:
+            events[0].record()
         err = getattr(_library(name), f"{name}_launch")(
             out.data_ptr(), _ptr(acc_a), _ptr(barb), bara.data_ptr(), key.data_ptr(),
             dig.data_ptr(), B, plan.config, plan.blocks, key.shape[0], geom.N, geom.bs, geom.C,
             decomp_length, log2_base, offset & 0xFFFFFFFF, mu, len(geom.cols),
             *_col_arrays(geom), torch.cuda.current_stream(key.device).cuda_stream,
             ctypes.byref(grid))
+        if events:
+            events[1].record()
+            launch_events.append(events)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out, grid.value
@@ -457,7 +469,8 @@ def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
     All CUDA tensors. Returns (B, C, N) int32; the output, which is the
     kernel's accumulator, and the digit scratch are allocated here, and the
     launch goes on the current stream. ``blind_rotate_cuda.launches`` counts
-    the launches, ``blind_rotate_cuda.grid`` is the last launch's grid.
+    the launches, ``blind_rotate_cuda.rows`` the ciphertexts they rotated,
+    ``blind_rotate_cuda.grid`` is the last launch's grid.
     """
     check_args(acc_a, key, bara, geom, decomp_length, log2_base, stepvec)
     if key.device.type != "cuda":
@@ -473,10 +486,12 @@ def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
     out, blind_rotate_cuda.grid = _launch("blind_rotate", plan, acc_a, key, bara, geom,
                                           decomp_length, log2_base, offset, stepvec)
     blind_rotate_cuda.launches += 1
+    blind_rotate_cuda.rows += B
     return out
 
 
 blind_rotate_cuda.launches = 0
+blind_rotate_cuda.rows = 0
 blind_rotate_cuda.grid = 0
 
 
@@ -494,6 +509,7 @@ def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
     Returns (B, C, N) int32, word-equal to ``fblock.blind_rotate_streamed``;
     allocation and stream as for ``blind_rotate_cuda``.
     ``blind_rotate_sel_cuda.launches`` counts the launches,
+    ``blind_rotate_sel_cuda.rows`` the ciphertexts they rotated,
     ``blind_rotate_sel_cuda.grid`` is the last launch's grid.
     """
     check_sel_args(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec)
@@ -510,10 +526,12 @@ def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
     out, blind_rotate_sel_cuda.grid = _launch("blind_rotate_sel", plan, acc_a, sel, bara, geom,
                                               decomp_length, log2_base, offset, stepvec)
     blind_rotate_sel_cuda.launches += 1
+    blind_rotate_sel_cuda.rows += B
     return out
 
 
 blind_rotate_sel_cuda.launches = 0
+blind_rotate_sel_cuda.rows = 0
 blind_rotate_sel_cuda.grid = 0
 
 
