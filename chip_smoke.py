@@ -57,17 +57,38 @@ read just after:
   events kept, must launch its set's kernel and no other (the tails none),
   prints its bootstraps (a MUX counts two), launches, wall time and the
   kernels' share of it, and is decrypted and held against a numpy oracle:
-  one wrong word fails the run.
+  one wrong word fails the run;
+- the rest of threshold and the auxiliary modules, on the fast set's keys
+  after C3, each path with the counts at 0 just before it and read just
+  after: D1, public-key encryption (20 encryptions of zero, 1,024 bits under
+  the public key, a gate_and of two such batches) and public sampling
+  (public_sample of 1,024 messages from a seed batch, the noise std of
+  fresh_zero within 10% of a plain gate's) and rlwe_extract_sample_at at
+  three coefficients; D2, a packing key (l = 3, 2^8) into a fresh ring key
+  of the fast set's ring, pack_lwes of 4 x 512 gate outputs, decoded, the
+  packing noise under 1/16, the card's words equal to the CPU's for one
+  ciphertext; D3, additive 2- and 4-party splits of the LWE key decoding the
+  public-key AND, the bound sweep 1.0 -> 1e-2, TlweTwoTwo's ring N = 2^20
+  (2 of 2, 16 bits), the limb FFT product on the card against the CPU's and
+  the exact product (2^20, within 2^12) and equal to the exact one at
+  N = 4,320, and Shamir 3 of 5 from two subsets; T8, right after the
+  8-party gates, mk_threshold_tail of one AND output (ring 4,320, the FFT
+  product on the card) at all four bounds; D4, the CLI in a temporary
+  directory through cli.main: keygen, encrypt, eval and, decrypt, convert,
+  tlwetn 3 5 1 2 4 and knn on a synthetic 8 x 4 CSV, and --help as a
+  subprocess.
 
 The compact kernel is also held against the expanded one on the full
 2-party key, each kernel against its plain version on one pipeline stage
 in explicit-accumulator mode, the party-sharded keyswitch and threshold
 decryption against their single-device forms, and the tiny-parameter mesh
 dry run (parallel/dryrun.py) runs on 8 slots. Each phase prints one line;
-the first failure ends the run with a non-zero code. The last five lines
+the first failure ends the run with a non-zero code. The last six lines
 are the ``circuits`` record (per circuit phase: bootstraps, launches, wall
-seconds, bootstraps/s, kernel seconds and share), the kernels' JSON record
-(launches over every main path, the circuits included; each kernel's time
+seconds, bootstraps/s, kernel seconds and share), the ``threshold_aux``
+record of D1-D4 (times, noise, the packing and FFT products' milliseconds,
+peak memory and bounds), the kernels' JSON record
+(launches over every main path, the circuits and D1-D4 included; each kernel's time
 and its plain version's at its main shape, beside the bound computed from
 the shapes; no single PyTorch call computes a CMux chain, so library_ms is
 null, and a yardstick line, labelled partial, gives n times the one
@@ -136,6 +157,18 @@ M1_SETS = {"mk_2party_3gen": {"add": (8, 256), "mul": (8, 64), "sort": (8, 4, 8)
 M2_VOLUME = (4, 4, 10)  # buys, sells, width (mk_2party_3gen)
 M3_KNN = (4, 3, 8, 3, 2)  # train rows, columns, width, k, test rows (mk_2party_3gen)
 CIRCUITS = {}  # phase -> its record: the "circuits" JSON line
+# D1-D4, the rest of threshold and the auxiliary modules, on the fast set's keys
+PACK_SHAPE = (4, 512)  # D2: packed ciphertexts x LWE samples packed into each
+PACK_GADGET = (3, 8)  # D2: the packing key's l and log2 of its base
+ADDITIVE_PARTIES = (2, 4)  # D3: additive splits of the fast set's LWE key
+ADDITIVE_BOUND = 2**-10  # D3: smudging stddev a party of the decoded split
+HUGE_RING = 1 << 20  # D3: TlweTwoTwo's ring, k = 1, 2 of 2
+TAIL_RING = 4320  # the 8-party tail's ring: 8 x 540
+FRESH_NOISE_BAND = 0.1  # D1: |fresh_zero noise std / a gate's - 1| at most this
+FFT_TOL = 2**12  # |diff| of two f64 FFT products, wrap-aware: < 2^-20 of the torus
+CLI_PARAMS = "tfhe_128_tpu_fast"  # D4
+CLI_KNN = (7, 1, 4, 12, 3)  # D4: train rows, test rows, columns, width, k
+AUX = {}  # phase -> its record: the "threshold_aux" JSON line
 
 
 def log(phase: str, msg: str) -> None:
@@ -455,11 +488,13 @@ def main() -> int:
     del sk2, ck2, out2
 
     single_key_circuits(sk, ck, gen, rng)
+    aux_launches = threshold_aux(sk, ck, gen, rng, dev)
 
     del sk, ck, cx, cy, c1x, c1y, chain, out, plain_out, kern_out, acc0, t, bara, barb, sv
     del keys_by_dev, xs, ys, sh_out
     torch.cuda.empty_cache()
 
+    aux_launches += cli_phase(rng)
     mkr = multikey(dev, rng)
     pipe = pipelines(rng, mkr.pop("kept"))
     sharded_ops(rng)
@@ -468,12 +503,13 @@ def main() -> int:
     circ = {k: sum(rec["launches"][k] for rec in CIRCUITS.values())
             for k in ("blind_rotate", "blind_rotate_sel")}
     print(json.dumps({"circuits": CIRCUITS}))
+    print(json.dumps({"threshold_aux": AUX}))
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
          "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
-         + pipe["launches"]["blind_rotate"] + circ["blind_rotate"],
+         + pipe["launches"]["blind_rotate"] + circ["blind_rotate"] + aux_launches,
          "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
@@ -618,6 +654,20 @@ def multikey(dev, rng) -> dict:
             f"{other} 0x; boot-noise std {noise:.5f} ({noise / env:.3f}x envelope {env}); "
             f"keygen {t_keygen:.2f} s, AND {t_and:.3f} s = {B / t_and:.1f} gates/s; peak memory "
             f"{peak / 1e9:.2f} GB")
+        if parties * params.lwe_size == TAIL_RING:  # the tail on a ring above 4,096
+            from torus_fhe_tpu_torch.apps import mk_knn
+
+            for bit in (False, True):  # one output of each value, so a constant tail fails
+                i = int(torch.nonzero(msgs.cpu() == bit)[0])
+                one = mk.MKLweSample(out.a[i], out.b[i])
+                tail = circuit_phase(
+                    f"T8 mk_threshold_tail (ring {TAIL_RING}, FFT product), {name}, bit {int(bit)}",
+                    None, lambda: mk_knn.mk_threshold_tail(
+                        one, keys, torch.Generator().manual_seed(SEED + 13)))
+                expect(f"T8 mk_threshold_tail, {name}, bit {int(bit)}", [r["bit"] for r in tail],
+                       [int(bit)] * len(tail))
+                if len(tail) != 4:
+                    raise AssertionError(f"T8: {len(tail)} bounds, want 4")
 
         if name == S1_MK_SET:  # S1: this key's file, saved, loaded onto the card, same words
             save_load_mk_key(ck, lambda k: gates3gen.mk_gate_and(k, ct, ct_true), out, name, B)
@@ -1304,6 +1354,308 @@ def sharded_ops(rng) -> None:
     dryrun.dryrun_multichip(mesh_devices(8))
     log("P4 dryrun", "dryrun_multichip on 8 slots: batch-sharded gate, sharded threshold "
         "decryption and the 4-party pipelined NAND pass")
+
+
+def counted(fn, want=None):
+    """(fn's result, blind_rotate launches, wall seconds) of one call of fn,
+    with the kernels' counts at 0 just before it and read just after. The
+    compact-key kernel must not launch; ``want``, where given, is the exact
+    count of blind_rotate launches."""
+    from torus_fhe_tpu_torch.ops import cuda_rotate
+
+    torch.cuda.synchronize()
+    reset_launches(cuda_rotate)
+    out, wall = sync_time(fn)
+    n = cuda_rotate.blind_rotate_cuda.launches
+    if cuda_rotate.blind_rotate_sel_cuda.launches or (want is not None and n != want):
+        raise AssertionError(f"launches: blind_rotate {n} (want {want}), blind_rotate_sel "
+                             f"{cuda_rotate.blind_rotate_sel_cuda.launches} (want 0)")
+    return out, n, wall
+
+
+def peak_bytes(fn):
+    """(fn's result, device bytes allocated at the peak of one call above
+    what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def wrap_diff(x, y) -> int:
+    """The largest |x - y| mod 2^32, taken the short way round the torus."""
+    d = (x.cpu().to(torch.int64) - y.cpu().to(torch.int64)) % 2**32
+    return int(torch.minimum(d, 2**32 - d).max())
+
+
+def fft_bound_ms(rows: int, N: int):
+    """The limb FFT product of ``rows`` pairs of N-coefficient 32-bit polys:
+    6 complex128 FFTs a row (both limbs of both operands forward, two
+    inverse) of 5 N log2 N flops at the card's float64 rate, against the two
+    inputs and the output read or written once (int32)."""
+    from torus_fhe_tpu_torch.ops import cuda_rotate
+
+    return cuda_rotate.bound_ms(6 * rows * 5 * N * np.log2(N), cuda_rotate.FP64_OPS_PER_S,
+                                3 * rows * N * 4)
+
+
+def exact_product(a: np.ndarray, b: np.ndarray) -> torch.Tensor:
+    """Exact negacyclic a (*) b mod 2^32 of uniform 32-bit polys (host):
+    the exact host products of a's two 16-bit halves."""
+    from torus_fhe_tpu_torch.ops import hostmath
+
+    a = a.astype(np.int64)
+    lo = ((a + (1 << 15)) & 0xFFFF) - (1 << 15)
+    with np.errstate(over="ignore"):
+        out = (hostmath.negacyclic_polymul_host(lo, b, 32).astype(np.int64)
+               + (hostmath.negacyclic_polymul_host((a - lo) >> 16, b, 32).astype(np.int64) << 16))
+    return torch.from_numpy(out.astype(np.int32))
+
+
+def threshold_aux(sk, ck, gen, rng, dev) -> int:
+    """D1-D3 at tfhe_128_tpu_fast on the main path's keys: public-key
+    encryption and public sampling (their gates launch blind_rotate.cu),
+    LWE -> RLWE packing, additive and Shamir key splitting and the limb FFT
+    product of huge rings. Every result is decrypted; one wrong word fails
+    the run. Returns the blind_rotate launches of their paths."""
+    import dataclasses
+
+    from torus_fhe_tpu_torch.boot import api, gates, pack, public_sample
+    from torus_fhe_tpu_torch.core.params import RLweParams
+    from torus_fhe_tpu_torch.core.torus import encode_message
+    from torus_fhe_tpu_torch.lwe import LweSample, lwe_phase
+    from torus_fhe_tpu_torch.ops import cuda_rotate, hostmath, poly
+    from torus_fhe_tpu_torch.rlwe import extract_lwe_key, rlwe_encrypt, rlwe_keygen, rlwe_phase
+    from torus_fhe_tpu_torch.threshold import additive, pk, shamir
+    from torus_fhe_tpu_torch.threshold import decrypt as tdec
+
+    fast, B = sk.params, MAIN_BATCH
+    N = fast.rlwe_polynomial_degree
+    eighth = int(encode_message(1, 8))
+    bits = lambda *shape: torch.from_numpy(rng.integers(0, 2, shape).astype(bool)).to(dev)
+    dec = lambda ct: api.decrypt(sk, ct).cpu().numpy()
+    launches = 0
+
+    # D1. public-key encryption: 20 encryptions of zero, subset sums, a gate
+    t0 = time.perf_counter()
+    pub, t_keygen = sync_time(lambda: pk.public_keygen(gen, sk.key, fast.lwe_noise_stddev))
+    x, y = bits(B), bits(B)
+    cx, cy = pk.public_encrypt(gen, pub, x), pk.public_encrypt(gen, pub, y)
+    expect("D1 public_encrypt", np.concatenate([dec(cx), dec(cy)]),
+           torch.cat([x, y]).cpu().numpy())
+    and_pk, n, t_and = counted(lambda: gates.gate_and(ck, cx, cy), want=1)
+    launches += n
+    expect("D1 gate_and on public-key ciphertexts", dec(and_pk), (x & y).cpu().numpy())
+    # public sampling: fresh encryptions of new messages from the seed batch cx
+    msgs = bits(B)
+    sampled, n, t_sample = counted(lambda: public_sample.public_sample(ck, cx, msgs), want=1)
+    launches += n
+    expect("D1 public_sample", dec(sampled), msgs.cpu().numpy())
+    zero, n, _ = counted(lambda: public_sample.fresh_zero(ck, cy), want=1)
+    launches += n
+    expect("D1 fresh_zero", dec(zero), np.zeros(B, bool))
+    err = lambda ct, want: ((lwe_phase(ct, sk.key) - torch.where(want, eighth, -eighth))
+                            .to(torch.int32).double() / 2**32).std().item()
+    z_std, g_std = err(zero, torch.zeros_like(x)), err(and_pk, x & y)
+    if abs(z_std / g_std - 1) > FRESH_NOISE_BAND:
+        raise AssertionError(f"D1: fresh_zero noise std {z_std:.6f} is {z_std / g_std:.3f}x a "
+                             f"gate's {g_std:.6f}, not within {FRESH_NOISE_BAND:.0%}")
+    # rlwe_extract_sample_at: coefficient `pos` of B ring samples as LWE samples
+    rk = rlwe_keygen(gen, fast.rlwe, device=dev)
+    positions = (0, 1, N - 1)
+    ring_bits = torch.from_numpy(rng.integers(0, 2, (B, len(positions))).astype(bool))
+    mu = torch.zeros((B, N), dtype=torch.int32)
+    mu[:, list(positions)] = torch.where(ring_bits, eighth, -eighth).to(torch.int32)
+    ring = rlwe_encrypt(gen, mu, fast.bs_noise_stddev, rk, fast.rlwe, (B,), device=dev)
+    for i, pos in enumerate(positions):
+        got = lwe_phase(public_sample.rlwe_extract_sample_at(ring, pos), extract_lwe_key(rk)) > 0
+        expect(f"D1 rlwe_extract_sample_at {pos}", got.cpu().numpy(), ring_bits[:, i].numpy())
+    AUX["D1 public key, public sampling"] = {
+        "B": B, "public_keygen_s": t_keygen, "gate_and_s": t_and, "public_sample_s": t_sample,
+        "fresh_zero_noise_std": z_std, "gate_noise_std": g_std, "ratio": z_std / g_std,
+        "wall_s": time.perf_counter() - t0}
+    log("D1", f"B={B}: public-key keygen {t_keygen:.3f} s, gate_and on public-key ciphertexts "
+        f"{t_and:.3f} s, public_sample {t_sample:.3f} s (1 launch each); fresh_zero noise std "
+        f"{z_std:.6f} = {z_std / g_std:.3f}x a gate's {g_std:.6f}; extract at {positions}")
+
+    # D2. packing: 4 x 512 gate outputs into 4 ring samples of the fast set's ring
+    t0 = time.perf_counter()
+    l, lb = PACK_GADGET
+    pkey, t_pkg = sync_time(lambda: pack.packing_keyswitch_keygen(
+        gen, fast.bs_noise_stddev, sk.key, rk, fast.rlwe, l, lb, device=dev))
+    M, m = PACK_SHAPE
+    lwe_in = LweSample(torch.cat([and_pk.a, sampled.a])[:M * m].reshape(M, m, -1),
+                       torch.cat([and_pk.b, sampled.b])[:M * m].reshape(M, m))
+    want = torch.cat([x & y, msgs])[:M * m].reshape(M, m)
+    packed, peak = peak_bytes(lambda: pack.pack_lwes(pkey, lwe_in, N))
+    phase = rlwe_phase(packed, rk)[..., :m]
+    expect("D2 pack_lwes", (phase > 0).cpu().numpy(), want.cpu().numpy())
+    pack_noise = (phase - lwe_phase(lwe_in, sk.key)).to(torch.int32).double().abs() / 2**32
+    if pack_noise.max().item() >= 1 / 16:
+        raise AssertionError(f"D2: packing noise max {pack_noise.max().item():.5f} >= 1/16")
+    pack_ms = event_ms(lambda: pack.pack_lwes(pkey, lwe_in, N), 3)
+    cpu_key = dataclasses.replace(pkey, kernels=pkey.kernels.cpu())
+    cpu_out, t_cpu = sync_time(lambda: pack.pack_lwes(
+        cpu_key, LweSample(lwe_in.a[0].cpu(), lwe_in.b[0].cpu()), N))
+    if not torch.equal(cpu_out.a, packed.a[0].cpu()):
+        raise AssertionError("D2: pack_lwes on the card != on the CPU")
+    CL, R = pkey.kernels.shape[:2]
+    pack_bound = cuda_rotate.bound_ms(2 * M * CL * R * N * N, cuda_rotate.INT8_OPS_PER_S,
+                                      pkey.kernels.numel() + lwe_in.a.numel() * 4
+                                      + lwe_in.b.numel() * 4 + packed.a.numel() * 4)
+    AUX["D2 pack_lwes"] = {
+        "packed": M, "lwes_each": m, "key_shape": list(pkey.kernels.shape),
+        "key_mb": pkey.kernels.numel() / 1e6, "keygen_s": t_pkg, "ms": pack_ms,
+        "peak_mb": peak / 1e6, "bound_ms": pack_bound[0], "bound_by": pack_bound[1],
+        "cpu_one_s": t_cpu, "noise_max": pack_noise.max().item(),
+        "noise_std": pack_noise.std().item(), "wall_s": time.perf_counter() - t0}
+    log("D2 pack_lwes", f"{M} x {m} gate outputs -> {M} ring samples (k=2, N={N}, l={l}, "
+        f"2^{lb}): 0 wrong, packing noise max {pack_noise.max().item():.5f} (< 1/16); keygen "
+        f"{t_pkg:.2f} s, key {tuple(pkey.kernels.shape)} int8 = "
+        f"{pkey.kernels.numel() / 1e6:.1f} MB; pack {pack_ms:.3f} ms on the card (bound "
+        f"{pack_bound[0]:.4f} ms, {pack_bound[1]}), peak {peak / 1e6:.1f} MB; == the CPU's "
+        f"words for one ciphertext ({t_cpu:.2f} s there)")
+    del pkey, packed, lwe_in, cpu_out, ring
+
+    # D3. additive splits of the LWE key, decoding the public-key AND
+    t0 = time.perf_counter()
+    fronts = {}
+    for p in ADDITIVE_PARTIES:
+        sh = additive.split_lwe_key(gen, sk.key, p)
+        if not torch.equal(sh.shares.sum(0, dtype=torch.int32), sk.key.key):
+            raise AssertionError(f"D3: {p} additive shares do not sum to the key")
+        g = torch.Generator().manual_seed(SEED + p)
+        decode = lambda bnd: (additive.combine(and_pk, additive.lwe_partial_decrypt(
+            and_pk, sh, bnd, g)) > 0).cpu().numpy()
+        expect(f"D3 additive {p} of {p}, bound 2^-10", decode(ADDITIVE_BOUND),
+               (x & y).cpu().numpy())
+        # the bound sweep 1.0 -> 1e-2, halving as the repository's other sweeps
+        # do, down to 2^-7 (below 1e-2) so that it brackets the frontier
+        sweep = [2.0**-i for i in range(8)]
+        fronts[p] = additive.max_tolerable_bound(
+            lambda bnd: bool((decode(bnd) == (x & y).cpu().numpy()).all()), sweep)
+        if not 0 < fronts[p] < sweep[0]:  # decodes at some bound, and smudging of 1.0 breaks it
+            raise AssertionError(f"D3: {p} of {p} additive frontier {fronts[p]} not inside the "
+                                 f"sweep {sweep}")
+    # TlweTwoTwo: ring N = 2^20, k = 1, 2 of 2, 16 bits
+    big = RLweParams(HUGE_RING, 1, 32)
+    g = torch.Generator().manual_seed(SEED + 20)
+    rkb = rlwe_keygen(g, big, device=dev)
+    value = int(rng.integers(0, 1 << 16))
+    ctb = rlwe_encrypt(g, tdec.encode_bits(value, HUGE_RING, n_bits=16), 1e-7, rkb, big,
+                       device=dev)
+    shb = additive.split_rlwe_key(g, rkb, 2)
+    parts, t_part = sync_time(lambda: additive.rlwe_partial_decrypt(ctb, shb, 1e-4, g))
+    got = tdec.decode_bits(additive.combine(ctb, parts), n_bits=16)
+    expect(f"D3 TlweTwoTwo N=2^{HUGE_RING.bit_length() - 1}", got, value)
+    del rkb, ctb, shb, parts
+    # the FFT product: card against CPU and the exact product at 2^20 (uniform
+    # 32-bit inputs), card == exact at the 8-party tail's ring (small shares)
+    fft = {}
+    a, b = rand_torus(rng, (2, HUGE_RING), 32), rand_torus(rng, (2, HUGE_RING), 32)
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    card, peak = peak_bytes(lambda: poly.negacyclic_polymul_fft64(ta, tb))
+    d_cpu = wrap_diff(card, poly.negacyclic_polymul_fft64(ta.cpu(), tb.cpu()))
+    d_exact = wrap_diff(card, exact_product(a, b))
+    if max(d_cpu, d_exact) > FFT_TOL:
+        raise AssertionError(f"D3: FFT product at 2^20: |card - cpu| {d_cpu}, |card - exact| "
+                             f"{d_exact}, above {FFT_TOL}")
+    fft[HUGE_RING] = {"rows": 2, "ms": event_ms(lambda: poly.negacyclic_polymul_fft64(ta, tb), 5),
+                      "peak_mb": peak / 1e6, "max_diff_cpu": d_cpu, "max_diff_exact": d_exact}
+    s = rand_torus(rng, (3, 1, TAIL_RING), 32) % 3 - 1  # shares of a binary key: small
+    r = rand_torus(rng, (1, TAIL_RING), 32)
+    ts, tr = torch.from_numpy(s).to(dev), torch.from_numpy(r).to(dev).expand(3, 1, TAIL_RING)
+    card, peak = peak_bytes(lambda: poly.negacyclic_polymul_fft64(ts, tr))
+    d_exact = max_diff(card.cpu(), torch.from_numpy(
+        hostmath.negacyclic_polymul_host(s, np.broadcast_to(r, s.shape), 32)))
+    if d_exact:
+        raise AssertionError(f"D3: FFT product at N={TAIL_RING} != exact: max |diff| {d_exact}")
+    fft[TAIL_RING] = {"rows": 3, "ms": event_ms(lambda: poly.negacyclic_polymul_fft64(ts, tr), 20),
+                      "peak_mb": peak / 1e6, "max_diff_exact": d_exact}
+    for ring_n, rec in fft.items():
+        rec["bound_ms"], rec["bound_by"] = fft_bound_ms(rec["rows"], ring_n)
+        diffs = {k: v for k, v in rec.items() if k.startswith("max_diff")}
+        log("D3 FFT product", f"N={ring_n}, {rec['rows']} rows: {rec['ms']:.4f} ms on the card "
+            f"(bound {rec['bound_ms']:.4f} ms, {rec['bound_by']}), peak "
+            f"{rec['peak_mb']:.1f} MB; {diffs} (tolerance {FFT_TOL})")
+    # Shamir 3 of 5 over Z_8191, reconstructed from two subsets
+    key_bits = sk.key.key.cpu().numpy()
+    shards = shamir.split_key(key_bits, 3, 5, seed=SEED)
+    for use in ([0, 1, 2], [4, 1, 3]):
+        expect(f"D3 Shamir 3 of 5 from {use}", shamir.reconstruct_key(shards, use), key_bits)
+    AUX["D3 splits, huge rings"] = {
+        "additive_parties": list(ADDITIVE_PARTIES), "max_tolerable_bound": fronts,
+        "huge_ring_partials_s": t_part, "fft": fft, "wall_s": time.perf_counter() - t0}
+    log("D3", f"additive {ADDITIVE_PARTIES}: max tolerable bound {fronts}; TlweTwoTwo N={HUGE_RING} "
+        f"partials {t_part:.3f} s, 16 bits decoded; Shamir 3 of 5 from two subsets")
+    return launches
+
+
+def cli_phase(rng) -> int:
+    """D4: the CLI (python -m torus_fhe_tpu_torch) on the card, in a
+    temporary directory, through cli.main(argv): keygen, encrypt, eval and,
+    decrypt, convert, tlwetn and knn on a synthetic CSV; --help once as a
+    subprocess. Returns the blind_rotate launches of eval, convert and knn."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from torus_fhe_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    launches, times = 0, {}
+
+    def run(want, *argv):
+        nonlocal launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, n, times[argv[0]] = counted(lambda: cli.main(list(argv)), want)
+        if rc != 0:
+            raise AssertionError(f"D4 {' '.join(argv)}: exit code {rc}\n{buf.getvalue()[-2000:]}")
+        launches += n
+        return buf.getvalue().strip().splitlines()
+
+    x, y = (int(v) for v in rng.integers(0, 2**32, 2))
+    rows, tests, cols, w, k = CLI_KNN
+    with tempfile.TemporaryDirectory() as tmp:
+        f = lambda name: os.path.join(tmp, name)
+        keys = ["--secret", f("secret.key.npz"), "--cloud", f("cloud.key.npz")]
+        run(0, "keygen", "--params", CLI_PARAMS, *keys, "--seed", str(SEED))
+        run(0, "encrypt", str(x), "--secret", f("secret.key.npz"), "--out", f("a.npz"))
+        run(0, "encrypt", str(y), "--secret", f("secret.key.npz"), "--out", f("b.npz"),
+            "--seed", "2")
+        run(1, "eval", "and", f("a.npz"), f("b.npz"), "--cloud", f("cloud.key.npz"),
+            "--out", f("c.npz"))
+        expect("D4 eval and", int(run(0, "decrypt", f("c.npz"), "--secret",
+                                      f("secret.key.npz"))[-1]), x & y)
+        out = run(1, "convert", str(x), str(y), *keys)
+        expect("D4 convert", sum("[OK]" in ln for ln in out), 4)
+        out = run(0, "tlwetn", "3", "5", "1", "2", "4")  # the sweep 0.0625 -> 1e-3:
+        # the smallest four bounds must decode; the largest lie at the smudging frontier
+        expect("D4 tlwetn", ["-> 13452 [OK]" in ln for ln in out[-4:]], [True] * 4)
+        data = np.concatenate([np.arange(rows + tests)[:, None],
+                               rng.integers(0, 200, (rows + tests, cols)),
+                               rng.integers(0, 2, (rows + tests, 1))], axis=1)
+        np.savetxt(f("cardio.csv"), data, fmt="%d", delimiter=",",
+                   header="id," + ",".join(f"c{i}" for i in range(cols)) + ",label", comments="")
+        res = json.loads(run(None, "knn", f("cardio.csv"), "--params", CLI_PARAMS, "--k", str(k),
+                             "--width", str(w), "--shift", "0", "--train-rows", str(rows),
+                             "--test-rows", str(tests), "--seed", str(SEED))[-1])
+        expect("D4 knn", res["predictions"], res["oracle"])
+        expect("D4 knn threshold tail", [[r["bit"] for r in t] for t in res["threshold_tail"]],
+               [[p] * 4 for p in res["predictions"]])
+    repo = os.path.dirname(os.path.abspath(__file__))
+    helped = subprocess.run([sys.executable, "-m", "torus_fhe_tpu_torch", "--help"], cwd=repo,
+                            capture_output=True, text=True, timeout=300)
+    if helped.returncode or not all(c in helped.stdout for c in ("keygen", "tlwetn", "--device")):
+        raise AssertionError(f"D4 --help: exit code {helped.returncode}\n{helped.stderr[-2000:]}")
+    AUX["D4 cli"] = {"seconds": times, "launches": launches, "wall_s": time.perf_counter() - t0}
+    log("D4 cli", f"{CLI_PARAMS}: " + ", ".join(f"{c} {s:.2f} s" for c, s in times.items())
+        + f"; blind_rotate launched {launches}x; --help as a subprocess")
+    return launches
 
 
 if __name__ == "__main__":

@@ -186,7 +186,11 @@ def test_package_never_imports_jax():
             " 'torus_fhe_tpu_torch.threshold.decrypt', 'torus_fhe_tpu_torch.utils.serialize',"
             " 'torus_fhe_tpu_torch.circuits.words', 'torus_fhe_tpu_torch.apps.knn',"
             " 'torus_fhe_tpu_torch.apps.cnn', 'torus_fhe_tpu_torch.apps.volume_matching',"
-            " 'torus_fhe_tpu_torch.apps.mk_knn', 'torus_fhe_tpu_torch.threshold.convert'}"
+            " 'torus_fhe_tpu_torch.apps.mk_knn', 'torus_fhe_tpu_torch.threshold.convert',"
+            " 'torus_fhe_tpu_torch.threshold.pk', 'torus_fhe_tpu_torch.threshold.shamir',"
+            " 'torus_fhe_tpu_torch.threshold.additive', 'torus_fhe_tpu_torch.boot.public_sample',"
+            " 'torus_fhe_tpu_torch.boot.pack', 'torus_fhe_tpu_torch.cli',"
+            " 'torus_fhe_tpu_torch.__main__'}"
             " <= set(sys.modules)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -117,14 +117,19 @@ def test_mk_threshold_tail(port_world):
 
 def test_mk_threshold_tail_above_the_exact_ring_raises():
     """At 8 parties of 540 (mk_8party_3gen) the ring has 4,320 coefficients,
-    above the exact products' 4,096: the tail raises, as the port does for
-    any such ring (the limb FFT product is not ported)."""
+    above the exact products' 4,096. The tail used to raise there; it now
+    takes the limb FFT product and recovers the bit at every bound."""
     parties, n = 8, 540
     assert parties * n > MAX_EXACT_N
-    keys = [LweKey(torch.zeros(n, dtype=torch.int32)) for _ in range(parties)]
-    ct = mk.MKLweSample(torch.zeros((parties, n), dtype=torch.int32), torch.tensor(1 << 29))
-    with pytest.raises(NotImplementedError, match="4096"):
-        mk_knn.mk_threshold_tail(ct, keys, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+    keys = [LweKey(torch.randint(0, 2, (n,), generator=g, dtype=torch.int32))
+            for _ in range(parties)]
+    a = torch.randint(-2**31, 2**31, (parties, n), generator=g).to(torch.int32)
+    mask = torch.sum(a.reshape(-1) * mk_knn.concat_lwe_key(keys).key, dtype=torch.int32)
+    for msg in (True, False):
+        ct = mk.MKLweSample(a, mask + (1 << 29 if msg else -(1 << 29)))
+        res = mk_knn.mk_threshold_tail(ct, keys, g)
+        assert len(res) == 4 and all(r["bit"] == int(msg) for r in res), res
 
 
 def test_run_mk_pipeline_matches_oracle(tmp_path):

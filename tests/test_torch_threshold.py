@@ -184,7 +184,12 @@ def test_subset_shares_and_huge_rings_raise():
     # duplicates and invalid ids are dropped, the first t valid ones used
     np.testing.assert_array_equal(repo.subset_shares([5, 2, 2, 9, 1, 3]),
                                   repo.subset_shares([1, 2, 3]))
+    # rings above N = 4096 used to raise; they take the limb FFT product now
     big = trlwe.RLweSample(torch.zeros((2, 8192), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdec.partial_decrypt(big, np.zeros((1, 1, 8192), np.int32), 0.0,
-                             torch.Generator().manual_seed(0))
+    big.a[0, 1] = 3
+    shares = np.zeros((1, 1, 8192), np.int32)
+    shares[0, 0, 2] = -5
+    got = tdec.partial_decrypt(big, shares, 0.0, torch.Generator().manual_seed(0))
+    want = torch.zeros((1, 8192), dtype=torch.int32)
+    want[0, 3] = -15
+    assert torch.equal(got, want)

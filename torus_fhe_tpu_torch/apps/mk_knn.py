@@ -12,8 +12,9 @@ with party subset {1,2,4} over a smudging-bound sweep.
 For the tail the (parties, n) mask flattens into ONE LWE ciphertext under the
 concatenated party key (b − Σ_p <a_p, s_p> = b − <a_flat, s_cat>), which
 embeds into a degree-(parties·n) ring, not a power of two. The exact products
-of threshold/decrypt.py serve rings up to MAX_EXACT_N = 4096; at 8 parties
-(4,320) the tail raises NotImplementedError.
+of threshold/decrypt.py serve rings up to MAX_EXACT_N = 4096; from 8 parties
+(4,320) the limb FFT product of ops/poly.py takes the ring, on the decision's
+device.
 
 Batch-first: all train rows, columns, bit positions and test rows of a
 circuit stage ride one multikey bootstrap call.
@@ -130,7 +131,7 @@ def mk_threshold_tail(decision: MKLweSample, lwe_keys: Sequence[LweKey],
     embedding, (t, p) Benaloh–Leichter sharing of the joint ring key,
     threshold decryption with ``subset`` across the smudging-bound sweep
     0.0125 -> 1e-3 (halving), sign-decoding coefficient 0 at each bound. On
-    the decision's device; a ring above 4,096 raises NotImplementedError."""
+    the decision's device; a ring above 4,096 takes the limb FFT product."""
     key_cat = concat_lwe_key(lwe_keys).key.to(decision.a.device)
     return threshold_sweep(tlwe_from_lwe(mk_flatten(decision)),
                            key_cat.reshape(1, -1).to(torch.int32), generator, t, p, subset,

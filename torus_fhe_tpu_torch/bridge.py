@@ -4,8 +4,9 @@ The JAX package and this one compute on the same key when the port takes the
 LWE key bits, the compact TGSW samples and the keyswitch table of a JAX
 ``SecretKey``/``CloudKey`` (``np.asarray`` of each field) and rebuilds its own
 F-block key from the samples. The same holds for the 3gen multikey keys
-(``MKSecretKey``, ``MKCloudKey`` made with ``keep_samples=True``). No JAX
-import is needed here. Every loader puts its result on ``device``; None is
+(``MKSecretKey``, ``MKCloudKey`` made with ``keep_samples=True``), for the
+public key, the packing key and additive shares. No JAX import is needed
+here. Every loader puts its result on ``device``; None is
 the card (core/device.resolve_device), ``"cpu"`` the CPU.
 """
 
@@ -17,12 +18,15 @@ import torch
 from .boot.api import CloudKey, SecretKey
 from .boot.bootstrap import bootstrap_key_from_samples
 from .boot.keyswitch import KeyswitchKey, pad_table
+from .boot.pack import PackingKey
 from .core.device import resolve_device
 from .core.params import SchemeParams, SchemeParams3Gen
 from .lwe import LweKey, LweSample
 from .mk import keys3gen
 from .mk.samples import MKLweSample
 from .rlwe import RLweKey
+from .threshold.additive import AdditiveShares
+from .threshold.pk import PublicKey
 
 
 def secret_key_from_numpy(params: SchemeParams, key_bits: np.ndarray,
@@ -80,3 +84,27 @@ def mk_lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> MKLweSample:
     device = resolve_device(device)
     return MKLweSample(torch.tensor(np.asarray(a, np.int32), device=device),
                        torch.tensor(np.asarray(b, np.int32), device=device))
+
+
+def public_key_from_numpy(a: np.ndarray, b: np.ndarray, alpha: float,
+                          device=None) -> PublicKey:
+    """a (n_samples, n), b (n_samples,): the encryptions of zero
+    (``pk.samples``), and the key's noise ``alpha``."""
+    return PublicKey(lwe_from_numpy(a, b, device), float(alpha))
+
+
+def packing_key_from_numpy(kernels: np.ndarray, n_in: int, decomp_length: int,
+                           log2_base: int, bits: int, mask_size: int,
+                           device=None) -> PackingKey:
+    """kernels: ((k+1)*limbs, n*l, N) int8 (``PackingKey.kernels``, the same
+    layout in both packages) and the key's static fields."""
+    return PackingKey(torch.tensor(np.asarray(kernels, np.int8), device=resolve_device(device)),
+                      int(n_in), int(decomp_length), int(log2_base), int(bits), int(mask_size))
+
+
+def additive_shares_from_numpy(shares: np.ndarray, device=None) -> AdditiveShares:
+    """shares: (p, ...) torus ints (``AdditiveShares.shares``), int32 or int64
+    as the JAX package made them."""
+    shares = np.asarray(shares)
+    dtype = np.int64 if shares.dtype == np.int64 else np.int32
+    return AdditiveShares(torch.tensor(shares.astype(dtype), device=resolve_device(device)))

@@ -124,9 +124,18 @@ SEL_CONFIGS = (TileConfig(16, 16, 4, 256, 1, 128, 8, True),
                TileConfig(64, 16, 4, 128, 3, 64, 1, True))
 SEL_NARROW_CONFIG = 5
 # peak rates of an H100 SXM that the bounds are taken against: dense int8
-# tensor-core operations, and device-memory bytes
+# tensor-core operations, float64 outside the tensor cores (NVIDIA's data
+# sheet), and device-memory bytes
 INT8_OPS_PER_S = 1979e12
+FP64_OPS_PER_S = 34e12
 BYTES_PER_S = 3.35e12
+
+
+def bound_ms(ops: float, ops_per_s: float, nbytes: float) -> tuple:
+    """(ms, what bounds it): the larger of ``ops`` over ``ops_per_s`` and
+    ``nbytes`` over the device-memory rate."""
+    ops_ms, bytes_ms = ops / ops_per_s * 1e3, nbytes / BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 class RotatePlan(NamedTuple):
@@ -332,10 +341,8 @@ def rotate_bound_ms(B: int, geom: FBlockGeometry, key_bytes: int) -> tuple:
     peak, against the bytes read once (key, bara, an accumulator in) and
     written once (the accumulator out) over the device-memory rate."""
     macs = geom.n * B * (geom.R * geom.N) * (len(geom.cols) * geom.N)
-    ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
     moved = key_bytes + B * geom.n * 4 + 2 * B * geom.C * geom.N * 4
-    bytes_ms = moved / BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return bound_ms(2 * macs, INT8_OPS_PER_S, moved)
 
 
 def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,

@@ -1,9 +1,12 @@
 """Negacyclic polynomial helpers: limb splits, monomial rotation, gadget
-decomposition, an exact schoolbook oracle and the exact int8 matrix product.
+decomposition, an exact schoolbook oracle, the limb FFT product of huge
+rings, the exact int8 matrix product and the packing contraction.
 
-Port of the parts of torus_fhe_tpu/ops/poly.py that the F-block blind rotate
-(digits of any width, 32- and 64-bit torus) and the keyswitch use. torch has no uint32 arithmetic, so the limb split works
-on the unsigned residue held in int64.
+Port of torus_fhe_tpu/ops/poly.py without its XLA conv backend and batched
+runtime-kernel products: what the F-block blind rotate (digits of any width,
+32- and 64-bit torus), the keyswitch, threshold decryption and LWE -> RLWE
+packing use. torch has no uint32 arithmetic, so the limb split works on the
+unsigned residue held in int64.
 """
 
 from __future__ import annotations
@@ -84,6 +87,54 @@ def negacyclic_polymul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     circ = bext[..., idx]  # (..., r, c) = bext[(c - r) mod 2N]
     res = (a.to(torch.int64)[..., :, None] * circ).sum(dim=-2)
     return res.to(b.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Limb-split f64 FFT product (huge rings, any N)
+# ---------------------------------------------------------------------------
+
+
+def _split16(x: torch.Tensor):
+    """x == lo + 2^16 hi with lo in [-2^15, 2^15): both limbs small for the
+    f64 FFT, as float64."""
+    lo = ((x + (1 << 15)) & 0xFFFF) - (1 << 15)
+    return lo.to(torch.float64), ((x - lo) >> 16).to(torch.float64)
+
+
+def negacyclic_polymul_fft64(a: torch.Tensor, b: torch.Tensor, bits: int = 32) -> torch.Tensor:
+    """Negacyclic product of int polys a (..., N) with 32-bit torus polys
+    b (..., N) through 16-bit-limb complex128 FFTs, on b's device (cuFFT in
+    double precision on the card), for any N: the huge rings of the
+    threshold partial decryption (N above 4096, up to 2^20 and beyond).
+
+    The twist by exp(-i pi k / N) turns the N-point cyclic FFT into the
+    negacyclic one. With 16-bit limbs every convolution sum stays below
+    N * 2^31 < 2^53, exact in f64 before rounding; the rounding error of the
+    FFT is what remains (the JAX package's bound: < 2^-20 of the torus at
+    N = 2^20). Torus wrap-around (mod 2^32) kills the limb product of scale
+    2^32, so three products remain and the two of scale 2^16 share one
+    inverse FFT. Returns int32.
+    """
+    if bits != 32:
+        raise ValueError(f"the FFT product implements the 32-bit torus, not {bits} bits")
+    a = a.to(device=b.device, dtype=torch.int64)
+    b = b.to(torch.int64)
+    N = a.shape[-1]
+    angle = torch.arange(N, dtype=torch.float64, device=b.device) * (torch.pi / N)
+    tw = torch.polar(torch.ones_like(angle), -angle)
+    itw = torch.polar(torch.ones_like(angle), angle)
+    a_lo, a_hi = _split16(a)
+    b_lo, b_hi = _split16(b)
+    fa_lo, fa_hi = torch.fft.fft(a_lo * tw), torch.fft.fft(a_hi * tw)
+    fb_lo, fb_hi = torch.fft.fft(b_lo * tw), torch.fft.fft(b_hi * tw)
+
+    def untwist_i32(f):
+        # the int64 -> int32 narrowing is the mod-2^32 torus reduction
+        return torch.round((torch.fft.ifft(f) * itw).real).to(torch.int64).to(torch.int32)
+
+    lo_lo = untwist_i32(fa_lo * fb_lo)
+    cross = untwist_i32(fa_lo * fb_hi + fa_hi * fb_lo)
+    return lo_lo + (cross << 16)  # int32 wrap == mod 2^32
 
 
 # ---------------------------------------------------------------------------
@@ -189,3 +240,77 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 int8_matmul.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Packed kernels and the exact negacyclic contraction against them
+# ---------------------------------------------------------------------------
+
+
+def pack_kernels_host(kernels: np.ndarray, bits: int) -> np.ndarray:
+    """Torus kernels as int8 limbs, in the JAX package's layout.
+
+    kernels: (..., R, C, N) torus ints (numpy). Returns int8 of shape
+    (..., C * n_limbs, R, N) with the window axis FLIPPED: row c * L + m
+    holds limb m of kernel[r, c] at position N - 1 - t.
+    ``negacyclic_extern_product`` reads this layout (the flip lets it form
+    the digit side's Toeplitz rows as windows of one padded sequence).
+    """
+    limbs = limb_split_signed_host(kernels, bits)  # (..., R, C, N, L)
+    limbs = np.moveaxis(limbs, -1, -2)[..., ::-1]  # (..., R, C, L, N), window flipped
+    limbs = np.moveaxis(limbs, -4, -2)  # (..., C, L, R, N)
+    shape = limbs.shape
+    return np.ascontiguousarray(
+        limbs.reshape(shape[:-4] + (shape[-4] * shape[-3], shape[-2], shape[-1])))
+
+
+INT32_TERMS = (2**31 - 1) // 2**14  # |digit * limb| <= 128 * 128: exact int32 sums of this many
+TOEPLITZ_BYTES = 1 << 29  # the digit-side Toeplitz rows held at once
+
+
+def negacyclic_extern_product(digits: torch.Tensor, packed: torch.Tensor, bits: int,
+                              out_polys: int) -> torch.Tensor:
+    """out[b, c] = sum_r digits[b, r] (*) kernels[r, c], negacyclic and exact.
+
+    digits: (B, R, N) int8; packed: (C * L, R, N) int8 from
+    ``pack_kernels_host`` (L = n_limbs(bits)), on digits' device. Returns
+    (B, C, N) torus ints (int32 for 32 bits, int64 for 64).
+
+    The circulant sits on the digit side, so the key side stays the compact
+    (C * L, R * N) limbs. With the window flipped, out[j] = sum_t
+    (x_u[j + t] - x_w[j + t]) * packed[t] for x_u = [0 * (N - 1), d] (the
+    terms t <= j) and x_w = [d[1:], 0 * N] (the wrapped ones, which carry the
+    minus sign): both halves are windows of a padded sequence (``unfold``),
+    stacked as rows of ONE ``int8_matmul`` whose sums are subtracted after,
+    so no digit is negated (+128 does not fit in int8). The reduction runs
+    in chunks of digit rows, each at most INT32_TERMS products a sum (the
+    int32 sums stay exact whatever the accumulator does on overflow) and at
+    most TOEPLITZ_BYTES of Toeplitz rows. The chunks add in the torus
+    dtype: wrapping int32 is exact mod 2^32 after the limb shifts, and at 64
+    bits the carries past 2^32 count, so they add in int64.
+    """
+    B, R, N = digits.shape
+    CL = packed.shape[0]
+    L = n_limbs_for(bits)
+    if CL % L or packed.shape[1:] != (R, N) or N % 8:
+        raise ValueError(f"packed {tuple(packed.shape)} against digits {tuple(digits.shape)}, "
+                         f"{L} limbs: want ({out_polys} * {L}, {R}, {N}) and N a multiple of 8")
+    cols = -(-CL // 8) * 8  # int8_matmul's N: a multiple of 8
+    key = torch.cat([packed.reshape(CL, R * N), packed.new_zeros((cols - CL, R * N))])
+    x = torch.stack([torch.cat([digits.new_zeros((B, R, N - 1)), digits], -1),
+                     torch.cat([digits[..., 1:], digits.new_zeros((B, R, N))], -1)])
+    dtype = torch.int32 if bits <= 32 else torch.int64
+    rows = max(1, min(INT32_TERMS // N, TOEPLITZ_BYTES // (2 * B * N * N)))
+    acc = None
+    for r0 in range(0, R, rows):
+        r1 = min(R, r0 + rows)
+        toeplitz = x[:, :, r0:r1].unfold(-1, N, 1)  # (2, B, r, j, t) = x[..., j + t]
+        mat = toeplitz.permute(0, 1, 3, 2, 4).reshape(2 * B * N, (r1 - r0) * N)
+        part = int8_matmul(mat, key[:, r0 * N:r1 * N].contiguous().t()).to(dtype)
+        acc = part if acc is None else acc + part
+    folded = acc.reshape(2, B, N, cols)[..., :CL]
+    folded = (folded[0] - folded[1]).permute(0, 2, 1).reshape(B, out_polys, L, N)
+    out = torch.zeros((B, out_polys, N), dtype=dtype, device=digits.device)
+    for m in range(L):
+        out = out + (folded[:, :, m] << (8 * m))
+    return out

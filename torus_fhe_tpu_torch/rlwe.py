@@ -133,3 +133,8 @@ def rlwe_extract_sample(sample: RLweSample) -> LweSample:
     if sample.a.dtype == torch.int64:
         return LweSample(t64_to_t32(a), t64_to_t32(body0))
     return LweSample(a, body0)
+
+
+def mul_by_monomial(sample: RLweSample, shift) -> RLweSample:
+    """All polys times X^shift; ``shift`` is an int or per-batch shifts."""
+    return RLweSample(poly.mul_by_monomial(sample.a, shift))

@@ -3,8 +3,11 @@
 Port of torus_fhe_tpu/threshold/decrypt.py. Each of the t parties computes
 partial_i = Σ_j share_i[j] ⊛ a[j] + smudging_i; the combiner recovers
 phase = b − partial_1 + partial_2 + ... + partial_t and decodes message bits
-from the first coefficients (MSIZE = 2). The products are exact negacyclic
-integer products wrapping mod 2^bits.
+from the first coefficients (MSIZE = 2). Up to N = 4096, and on the 64-bit
+torus, the products are exact negacyclic integer products wrapping mod
+2^bits; above, the limb f64 FFT product (ops/poly.negacyclic_polymul_fft64, as the reference's own
+partial decryption is an f64 FFT), whose rounding error lies orders below
+every smudging sd.
 """
 
 from __future__ import annotations
@@ -20,17 +23,17 @@ from ..ops import poly
 from ..rlwe import RLweSample
 from .shares import ShareSet
 
-MAX_EXACT_N = 4096  # the largest ring the schoolbook product serves here
-HUGE_RING = ("rings above N=4096 take the limb FFT product negacyclic_polymul_fft64, which "
-             "is not ported yet (ROADMAP.md, slice 3)")
+MAX_EXACT_N = 4096  # the largest ring the schoolbook product serves
 
 
 def party_products(shares: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Σ_j shares[i, j] ⊛ a[j] for each party i: shares (t, k, N) small
-    ints, a (k, N) torus. Returns (t, N) in a's dtype."""
-    if a.shape[-1] > MAX_EXACT_N:
-        raise NotImplementedError(HUGE_RING)
-    prods = poly.negacyclic_polymul_ref(shares.to(torch.int64), a)
+    """Σ_j shares[i, j] ⊛ a[j] for each party i: shares (t, k, N) ints,
+    a (k, N) torus. Returns (t, N) in a's dtype: exact up to N = 4096 and on
+    the 64-bit torus, the limb FFT product (32-bit only) above."""
+    if a.shape[-1] <= MAX_EXACT_N or a.dtype == torch.int64:
+        prods = poly.negacyclic_polymul_ref(shares.to(torch.int64), a)
+    else:
+        prods = poly.negacyclic_polymul_fft64(shares, a.expand(shares.shape[:1] + a.shape))
     return torch.sum(prods, dim=-2, dtype=a.dtype)
 
 
