@@ -76,7 +76,20 @@ read just after:
   product on the card) at all four bounds; D4, the CLI in a temporary
   directory through cli.main: keygen, encrypt, eval and, decrypt, convert,
   tlwetn 3 5 1 2 4 and knn on a synthetic 8 x 4 CSV, and --help as a
-  subprocess.
+  subprocess;
+- the 1st-gen (CCS) and 2nd-gen (KMS) multikey schemes (mk/ccs.py,
+  mk/kms.py), torch ops on the card that launch neither kernel (the JAX
+  package runs both outside Pallas), each with the counts at 0 before it:
+  E1, mk_2party_ccs at full registry width (n = 560, N = 1024, l = 3,
+  Bg = 2^9, 1,120 CMux steps, 32-bit): party and cloud keygen on the card, a
+  NAND batch of 256 over all four input pairs, 0 wrong and max |phase -
+  ideal| < 1/16, its wall time, int8 products, the host/device split of a
+  step and the bound from shapes; E2, mk_2party_kms at full width (N = 2048,
+  64-bit): the same with fast_boot, its rotates and its relinearisation
+  timed apart, and a fast_boot=False batch of 16; E3, both schemes at the
+  test sets (2 and 3 parties) on the same keys on the card and the CPU,
+  equal words, and a save -> load round trip of each full-width key on the
+  card giving the same NAND words.
 
 The compact kernel is also held against the expanded one on the full
 2-party key, each kernel against its plain version on one pipeline stage
@@ -93,8 +106,9 @@ and its plain version's at its main shape, beside the bound computed from
 the shapes; no single PyTorch call computes a CMux chain, so library_ms is
 null, and a yardstick line, labelled partial, gives n times the one
 torch._int_mm of a plain step), the
-``routes`` record of the wide route (per set: no launch of either kernel, and
-its count of int8 products), the card's name and power limit as nvidia-smi gives them, and
+``routes`` record of the wide route and of E1-E2 (per set: no launch of either
+kernel, and its count of int8 products; for CCS and KMS also keygen, key bytes,
+NAND seconds, noise, the time split and bound, the key file), the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": ...}. Without a CUDA device, or
 outside the repository, it fails and prints no result. It imports no JAX.
 """
@@ -102,6 +116,7 @@ outside the repository, it fails and prints no result. It imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -143,6 +158,14 @@ WIDE_RAGGED = (1, 37)
 WIDE_SET = ("mk_16party_3gen", 16, 128)  # W2: registry name, parties, batch
 TFHE80_BATCH = 256  # W3
 S1_MK_SET = "mk_4party_3gen"  # the 3gen key that S1 saves and loads
+# E1, E2: the CCS and KMS sets at full registry width (registry name, batch)
+SCHEME_SETS = (("mk_2party_ccs", 256), ("mk_2party_kms", 256))
+KMS_SLOW_BATCH = 16  # E2: the fast_boot=False batch
+E3_PARTIES = (2, 3)  # E3: card against CPU at test_parameters_{ccs,kms}
+PHASE_BOUND = 1 / 16  # max |phase - ideal| of a KMS gate, and of both at the test sets
+# E1: a CCS gate's noise std against tools/scheme_noise.ccs_noise_std, which
+# leaves out the steps' covariance through the mean of r (it adds, never removes)
+CCS_NOISE_BAND = (0.75, 1.5)
 # circuit phases. C1 (tfhe_128_tpu_fast): (width, batch) of the adder, the
 # comparator and the minimum; (width, words, independent sorts) of the sort
 C1_ADD, C1_LESS, C1_MIN, C1_SORT = (32, 1024), (16, 1024), (16, 64), (16, 6, 8)
@@ -499,6 +522,7 @@ def main() -> int:
     pipe = pipelines(rng, mkr.pop("kept"))
     sharded_ops(rng)
     routes = wide_route(dev, rng)
+    routes.update(scheme_phases(dev, rng))
 
     circ = {k: sum(rec["launches"][k] for rec in CIRCUITS.values())
             for k in ("blind_rotate", "blind_rotate_sel")}
@@ -1106,6 +1130,284 @@ def wide_route(dev, rng) -> dict:
     del sk, ck80, cx, cy, out, nand, fb
     torch.cuda.empty_cache()
     return routes
+
+
+def key_bytes(ck) -> int:
+    """Bytes of a cloud key's tensors on its device."""
+    return sum(v.numel() * v.element_size() for v in vars(ck).values()
+               if isinstance(v, torch.Tensor))
+
+
+def scheme_phases(dev, rng) -> dict:
+    """E1-E3: the 1st-gen (CCS) and 2nd-gen (KMS) multikey schemes, torch ops
+    on the card (neither kernel launches; the JAX package runs both outside
+    Pallas). E1 mk_2party_ccs and E2 mk_2party_kms at full registry width:
+    party keygens and the cloud key on the card, a NAND batch over all four
+    input pairs decrypt-checked with max |phase - ideal| under PHASE_BOUND,
+    its wall time, the host/device split of a CMux step, the int8 products
+    and the bound from shapes (KMS: its rotates and its relinearisation
+    apart, and a fast_boot=False batch). E3: the card's words against the
+    CPU's on the same keys at the test sets, and a save -> load round trip
+    of each full-width key on the card. Returns the ``routes`` records."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.mk import ccs, kms
+    from torus_fhe_tpu_torch.ops import cuda_rotate, poly
+    from torus_fhe_tpu_torch.tools.scheme_noise import allowed_wrong, ccs_noise_std, phase_error
+    from torus_fhe_tpu_torch.utils import serialize
+
+    routes, kept = {}, {}
+    for name, B in SCHEME_SETS:
+        scheme = ccs if name.endswith("_ccs") else kms
+        tag = "E1" if scheme is ccs else "E2"
+        params = P.PARAMETER_REGISTRY[name]()
+        parties, n, N = params.max_parties, params.lwe_size, params.rlwe_polynomial_degree
+        keygen = ccs.ccs_party_keygen if scheme is ccs else kms.kms_party_keygen
+        cloud = ccs.ccs_cloud_keygen if scheme is ccs else kms.kms_cloud_keygen
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator().manual_seed(SEED + 200 + parties)
+        t0 = time.perf_counter()
+        sks = [keygen(gen, params, device=dev) for _ in range(parties)]
+        ck = cloud(gen, sks, params, device=dev)
+        torch.cuda.synchronize()
+        t_keygen = time.perf_counter() - t0
+        keys = [sk.lwe for sk in sks]
+        pairs = torch.from_numpy(rng.permutation(np.arange(B) % 4)).to(dev)
+        x, y = pairs >= 2, pairs % 2 == 1
+        cx, cy = mk.mk_encrypt(gen, keys, x, params), mk.mk_encrypt(gen, keys, y, params)
+        torch.cuda.synchronize()
+        reset_launches(cuda_rotate)
+        poly.int8_matmul.calls = 0
+        out, t_cold = sync_time(lambda: scheme.mk_gate_nand(ck, cx, cy))
+        got = {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+               "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches,
+               "int8_matmul": poly.int8_matmul.calls}
+        if got["blind_rotate"] or got["blind_rotate_sel"]:
+            raise AssertionError(f"{tag} {name}: a kernel launched: {got}")
+        steps = parties * n
+        if scheme is ccs and got["int8_matmul"] != steps * (parties + 3) + parties:
+            raise AssertionError(f"{tag} {name}: {got['int8_matmul']} int8 products, want "
+                                 f"{steps} steps x {parties + 3} + {parties} keyswitches")
+        if out.a.shape != (B, parties, n) or out.a.dtype != torch.int32:
+            raise AssertionError(f"{tag} {name}: gate output {out.a.dtype} {tuple(out.a.shape)}")
+        wrong, err_max, err_std, over = phase_error(out, keys, ~(x & y), PHASE_BOUND)
+        if scheme is ccs:
+            # the scheme's own noise puts 1/16 at ~2 std: the std is held to
+            # its prediction, the wrong count to what that std allows
+            pred = ccs_noise_std(params)
+            allowed = allowed_wrong(B, pred * CCS_NOISE_BAND[1])
+            ok = wrong <= allowed and CCS_NOISE_BAND[0] <= err_std / pred <= CCS_NOISE_BAND[1]
+            gate = (f"boot-noise std {err_std:.5f} = {err_std / pred:.3f}x the predicted "
+                    f"{pred:.5f} (band {CCS_NOISE_BAND}), {wrong} wrong (at most {allowed})")
+        else:
+            ok = wrong == 0 and err_max < PHASE_BOUND
+            gate = f"{wrong} wrong, max |phase - ideal| under {PHASE_BOUND}"
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{tag} {name}", f"{parties} party keygens + cloud keygen {t_keygen:.2f} s; key on the "
+            f"card {key_bytes(ck) / 1e6:.1f} MB; NAND B={B} (all four input pairs): {wrong} wrong "
+            f"of {B}, max |phase - ideal| {err_max:.5f}, {over} at or over {PHASE_BOUND}, "
+            f"boot-noise std {err_std:.5f}; {t_cold:.3f} s; blind_rotate 0x, blind_rotate_sel 0x, "
+            f"int8 products {got['int8_matmul']}; peak memory {peak / 1e9:.2f} GB; held to: "
+            f"{gate}: {'met' if ok else 'NOT MET'}")
+        if not ok:
+            raise AssertionError(f"{tag} {name}: {gate} not met")
+        t_warm = sync_time(lambda: scheme.mk_gate_nand(ck, cx, cy))[1]
+        log(f"{tag} {name}", f"NAND B={B} warm {t_warm:.3f} s = {B / t_warm:.1f} gates/s")
+        temp = mk.mk_lwe_noiseless_trivial(ccs.MU, params.lwe, parties, (B,), device=dev) - cx - cy
+        rec = {"route": "torch ops (F-block products, 32-bit)" if scheme is ccs else
+               "torch ops (64-bit F-block scan, Toeplitz products)", **got, "gates": 1, "batch": B,
+               "keygen_s": t_keygen, "key_bytes": key_bytes(ck), "nand_s": [t_cold, t_warm],
+               "wrong": wrong, "phase_err_max": err_max, "over_bound": over,
+               "boot_noise_std": err_std}
+        if scheme is ccs:
+            rec.update(ccs_split(ck, temp, B, tag, name))
+        else:
+            rec.update(kms_split(ck, temp, B, tag, name))
+            xs, ys = (mk.MKLweSample(c.a[:KMS_SLOW_BATCH], c.b[:KMS_SLOW_BATCH]) for c in (cx, cy))
+            slow, t_slow = sync_time(lambda: kms.mk_gate_nand(ck, xs, ys, fast_boot=False))
+            want = ~(x[:KMS_SLOW_BATCH] & y[:KMS_SLOW_BATCH])
+            wrong_s, err_s, std_s, _ = phase_error(slow, keys, want, PHASE_BOUND)
+            if wrong_s or not err_s < PHASE_BOUND:
+                raise AssertionError(f"{tag} {name} fast_boot=False: {wrong_s} wrong, max |phase "
+                                     f"- ideal| {err_s:.5f}")
+            a8 = torch.ones((2, 32, 32), dtype=torch.int8, device=dev)
+            try:  # why the runtime-kernel product takes one element a product
+                torch.bmm(a8, a8)
+                bmm = "runs"
+            except (NotImplementedError, RuntimeError) as err:
+                bmm = f"refused: {str(err).splitlines()[0][:80]}"
+            log(f"{tag} {name}", f"torch.bmm of int8 CUDA tensors {bmm}")
+            rec["slow_boot"] = {"batch": KMS_SLOW_BATCH, "nand_s": t_slow, "wrong": wrong_s,
+                                "phase_err_max": err_s, "boot_noise_std": std_s}
+            log(f"{tag} {name} fast_boot=False", f"NAND B={KMS_SLOW_BATCH}: 0 wrong, max |phase - "
+                f"ideal| {err_s:.5f}, std {std_s:.5f}; {t_slow:.3f} s (both parties through "
+                "the TLev rotate and the relinearisation)")
+        routes[name] = rec
+        kept[name] = (scheme, ck, cx, cy, out)
+        del sks, temp
+        torch.cuda.empty_cache()
+
+    # E3. the same keys on the card and on the CPU at the test sets: equal words
+    for scheme, make in ((ccs, P.test_parameters_ccs), (kms, P.test_parameters_kms)):
+        keygen = ccs.ccs_party_keygen if scheme is ccs else kms.kms_party_keygen
+        cloud = ccs.ccs_cloud_keygen if scheme is ccs else kms.kms_cloud_keygen
+        for parties in E3_PARTIES:
+            params = make(parties=parties)
+            outs = {}
+            for where in ("cpu", dev):
+                gen = torch.Generator().manual_seed(SEED + 300 + parties)
+                sks = [keygen(gen, params, device=where) for _ in range(parties)]
+                ck = cloud(gen, sks, params, device=where)
+                keys = [sk.lwe for sk in sks]
+                bits = torch.from_numpy(np.arange(8) % 4).to(where)
+                cx, cy = (mk.mk_encrypt(gen, keys, v, params) for v in (bits >= 2, bits % 2 == 1))
+                outs[str(where)] = ([ccs.mk_gate_nand(ck, cx, cy)] if scheme is ccs else
+                                    [kms.mk_gate_nand(ck, cx, cy, fb) for fb in (True, False)])
+                for out in outs[str(where)]:
+                    wrong, err_max, _, _ = phase_error(out, keys, ~((bits >= 2) & (bits % 2 == 1)),
+                                                       PHASE_BOUND)
+                    if wrong or not err_max < PHASE_BOUND:  # the JAX test's bound at its set
+                        raise AssertionError(f"E3 {scheme.__name__} {parties} parties on {where}: "
+                                             f"{wrong} wrong, max |phase - ideal| {err_max:.5f}")
+            err = max(max_diff(c.a.cpu(), g.a) + max_diff(c.b.cpu(), g.b)
+                      for c, g in zip(outs[str(dev)], outs["cpu"]))
+            if err:
+                raise AssertionError(f"E3 {scheme.__name__} {parties} parties: card != CPU, max "
+                                     f"|diff| {err}")
+            log("E3 card==CPU", f"{scheme.__name__.rsplit('.', 1)[-1]} test set, {parties} parties, "
+                f"same keys: NAND words on the card == on the CPU, max |diff| {err}"
+                + (" (fast_boot True and False)" if scheme is kms else ""))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (scheme, ck, cx, cy, out) in kept.items():
+            short = "ccs" if scheme is ccs else "kms"
+            path = os.path.join(tmp, f"{name}.key")
+            _, t_save = sync_time(lambda: getattr(serialize, f"save_{short}_cloud_key")(path, ck))
+            size = os.path.getsize(path)
+            ck2, t_load = sync_time(lambda: getattr(serialize, f"load_{short}_cloud_key")(path))
+            for f in dataclasses.fields(ck):
+                v = getattr(ck, f.name)
+                if isinstance(v, torch.Tensor) and (getattr(ck2, f.name).device.type != dev.type
+                                                    or not torch.equal(getattr(ck2, f.name), v)):
+                    raise AssertionError(f"E3 {name}: the loaded {f.name} differs or is off the card")
+            again = scheme.mk_gate_nand(ck2, cx, cy)
+            if not (torch.equal(again.a, out.a) and torch.equal(again.b, out.b)):
+                raise AssertionError(f"E3 {name}: NAND on the loaded key != on the saved key")
+            routes[name]["file"] = {"bytes": size, "save_s": t_save, "load_s": t_load}
+            log("E3 key file", f"{name}: {size / 1e6:.1f} MB on disk, saved in {t_save:.2f} s, "
+                f"loaded onto the card in {t_load:.2f} s; NAND on the loaded key == on the saved "
+                f"key word for word (B={out.b.shape[0]})")
+            del ck2, again
+    del kept
+    torch.cuda.empty_cache()
+    return routes
+
+
+def ccs_split(ck, temp, B: int, tag: str, name: str) -> dict:
+    """Where a CCS gate's time goes: the rotate, host against device a CMux
+    step, and the bound from shapes."""
+    import dataclasses
+
+    from torus_fhe_tpu_torch.mk import ccs
+    from torus_fhe_tpu_torch.ops import cuda_rotate
+
+    params = ck.params
+    P, N, l = ck.parties, params.rlwe_polynomial_degree, params.bs_decomp_length
+    acc, bara = ccs.rotate_input(ccs.MU, temp, N, P, torch.int32)
+    bara = bara.flatten(1)
+    steps = bara.shape[1]
+    _, t_enq, t_rot = enqueue_and_total(lambda: ccs.ccs_blind_rotate_fb(acc, ck, bara))
+    part = dataclasses.replace(ck, d_sel=ck.d_sel[:64], f0_sel=ck.f0_sel[:64],
+                               f1_sel=ck.f1_sel[:64])
+    busy_ms, top = device_busy(lambda: ccs.ccs_blind_rotate_fb(acc, part, bara[:, :64]))
+    one = lambda: ccs.ccs_blind_rotate_fb(acc[:1], part, bara[:1, :64])
+    one()
+    host_s = min(sync_time(one)[1] for _ in range(3))
+    nl = (params.bs_log2_base + 8) // 8 if params.bs_log2_base > 8 else 1
+    # a contraction of one poly: l digit rows of N against 4 limb columns of N,
+    # each digit block; u and v one line a poly, w two
+    macs = steps * nl * B * (P + 1) * l * N * N * 4 * 4
+    moved = (3 * ck.d_sel.numel() + ck.pk_fb.numel() + ck.sk_fb.numel() + ck.ks_mats.numel()
+             + B * steps * 4 + 2 * B * (P + 1) * N * 4)
+    bound, by = cuda_rotate.bound_ms(2 * macs, cuda_rotate.INT8_OPS_PER_S, moved)
+    busy = None if busy_ms is None else busy_ms / 64
+    log(f"{tag} {name} rotate", f"B={B}, {steps} CMux steps, {P + 3} int8 products a step "
+        f"(u, {P + 1} x v, w0|w1), {nl} digit limb blocks: rotate {t_rot * 1e3:.1f} ms = "
+        f"{t_rot / steps * 1e3:.3f} ms a step, host enqueue {t_enq / steps * 1e3:.3f} ms a step; "
+        f"a 64-step chunk at B=1 {host_s / 64 * 1e3:.3f} ms a step (the host's share), kernels "
+        f"on the card {'not measured' if busy is None else f'{busy:.3f} ms'} a step "
+        f"(torch.profiler; top: {'; '.join(top) if top else 'none'}); bound from shapes "
+        f"{bound:.1f} ms a gate batch ({by})")
+    return {"rotate_s": t_rot, "step_ms": t_rot / steps * 1e3, "host_enqueue_step_ms":
+            t_enq / steps * 1e3, "host_step_ms_b1": host_s / 64 * 1e3, "device_step_ms": busy,
+            "bound_ms": bound, "bound_by": by}
+
+
+def kms_split(ck, temp, B: int, tag: str, name: str) -> dict:
+    """Where a KMS gate's time goes: party 0's single-key rotate and its
+    uni-product entry, party 1's TLev rotate and its relinearisation (TLev
+    product + uni-product), host against device a CMux step, and the bound
+    from shapes."""
+    from torus_fhe_tpu_torch.mk import ccs, kms
+    from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+
+    params = ck.params
+    P, N, n = ck.parties, params.rlwe_polynomial_degree, params.lwe_size
+    gp, geom = params.tgsw, kms.kms_fb_geometry(params, n)
+    acc, bara = ccs.rotate_input(kms.MU64, temp, N, P, torch.int64)
+    sacc = torch.stack([torch.zeros_like(acc[:, P]), acc[:, P]], dim=1)
+    rot = lambda a, sel, b: fblock.blind_rotate_streamed(a, sel, b, geom, gp.decomp_length,
+                                                         gp.log2_base, gp.offset)
+    sacc, t_single = sync_time(lambda: rot(sacc, ck.gsw_sel[:n], bara[:, 0]))
+    e, f = torch.zeros_like(acc), torch.zeros_like(acc)
+    e[:, P], f[:, P] = sacc[:, 0], sacc[:, 1]
+    acc1, t_uni0 = sync_time(lambda: f - kms.uni_product_new(e, ck, 0))
+    times = {"single_rotate": t_single, "uni_entry": t_uni0}
+    for p in range(1, P):
+        lev, times[f"lev_rotate_{p}"] = sync_time(lambda: kms._lev_blind_rotate(ck, p, bara[:, p],
+                                                                                64))
+        ef, times[f"tlev_product_{p}"] = sync_time(lambda: kms.tlev_extern_mul(acc1, lev, params))
+        uni, times[f"uni_product_{p}"] = sync_time(lambda: kms.uni_product_new(ef[..., 0, :], ck, p))
+        acc1 = ef[..., 1, :] - uni
+    rotates = sum(v for k, v in times.items() if "rotate" in k)
+    relin = sum(v for k, v in times.items() if "rotate" not in k)
+    llev = params.lev_decomp_length
+    lev_rows = B * llev
+    chunk_acc = torch.zeros((lev_rows, 2, N), dtype=torch.int64, device=acc.device)
+    chunk_bara = bara[:, 1:2].expand(B, llev, n).reshape(lev_rows, n)[:, :64]
+    busy_ms, top = device_busy(lambda: rot(chunk_acc, ck.gsw_sel[n:n + 64], chunk_bara))
+    one = lambda: rot(chunk_acc[:1], ck.gsw_sel[n:n + 64], chunk_bara[:1])
+    one()
+    host_s = min(sync_time(one)[1] for _ in range(3))
+    nl = (gp.log2_base + 8) // 8 if gp.log2_base > 8 else 1
+    R, cols = geom.R, len(geom.cols)
+    rot_macs = n * nl * (B + (P - 1) * lev_rows) * R * N * N * cols  # the rotates' products
+    uni, lev_p = params.uni, params.tlev
+    nu = (uni.log2_base + 8) // 8 if uni.log2_base > 8 else 1
+    nv = (lev_p.log2_base + 8) // 8 if lev_p.log2_base > 8 else 1
+    relin_macs = P * (nu * B * (P + 1) * uni.decomp_length * N * N * 8 * (P + 2)
+                      + nu * B * uni.decomp_length * N * N * 8 * 2)
+    relin_macs += (P - 1) * nv * B * (P + 1) * llev * N * N * 16
+    moved = (ck.gsw_sel.numel() + ck.ks_mats.numel() + B * P * n * 4 + 2 * B * (P + 1) * N * 8)
+    bound, by = cuda_rotate.bound_ms(2 * (rot_macs + relin_macs), cuda_rotate.INT8_OPS_PER_S, moved)
+    busy = None if busy_ms is None else busy_ms / 64
+    log(f"{tag} {name} parts", ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+        + f"; rotates {rotates * 1e3:.1f} ms, relinearisation {relin * 1e3:.1f} ms")
+    log(f"{tag} {name} rotate", f"TLev rotate of B*l_lev = {lev_rows} rows, {n} steps, one int8 "
+        f"product a step ({nl} digit limb blocks, {cols} limb columns, 64-bit): "
+        f"{times['lev_rotate_1'] / n * 1e3:.3f} ms a step; a 64-step chunk at one row "
+        f"{host_s / 64 * 1e3:.3f} ms a step (the host's share), kernels on the card "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms'} a step (torch.profiler; top: "
+        f"{'; '.join(top) if top else 'none'}); single-key rotate (B={B}) "
+        f"{t_single / n * 1e3:.3f} ms a step; bound from shapes {bound:.1f} ms a gate batch ({by})")
+    return {"parts_s": times, "rotates_s": rotates, "relin_s": relin,
+            "lev_step_ms": times["lev_rotate_1"] / n * 1e3, "single_step_ms": t_single / n * 1e3,
+            "host_step_ms_b1": host_s / 64 * 1e3, "device_step_ms": busy, "bound_ms": bound,
+            "bound_by": by}
 
 
 def circuit_phase(name: str, kernel, fn):

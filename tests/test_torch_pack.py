@@ -187,3 +187,32 @@ def test_port_packing_key_decrypts():
     with pytest.raises(ValueError, match="byte-sized"):
         pack.packing_keyswitch_keygen(g, 2**-20, LweKey(sk.key.key), rk, params.rlwe,
                                       log2_base=10, device="cpu")
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_extern_product_chunks_the_batch(monkeypatch, bits):
+    """With TOEPLITZ_BYTES below one digit row's Toeplitz block of the whole
+    batch (2 * B * N^2 bytes), the product is split over the batch as well:
+    no int8_matmul is given more than the cap, and the words equal the
+    unsplit product's."""
+    B, R, N, C = 6, 3, 32, 2
+    rng = np.random.default_rng(bits)
+    digits = torch.from_numpy(rng.integers(-128, 128, (B, R, N)).astype(np.int8))
+    packed = torch.from_numpy(rng.integers(-128, 128, (C * poly.n_limbs_for(bits), R, N))
+                              .astype(np.int8))
+    want = poly.negacyclic_extern_product(digits, packed, bits, C)
+    cap = 2 * 2 * N * N  # two digit rows of one element
+    assert cap < 2 * B * N * N
+    monkeypatch.setattr(poly, "TOEPLITZ_BYTES", cap)
+    sizes = []
+    matmul = poly.int8_matmul
+
+    def spy(a, b):
+        sizes.append(a.numel())
+        return matmul(a, b)
+
+    spy.calls = 0
+    monkeypatch.setattr(poly, "int8_matmul", spy)
+    got = poly.negacyclic_extern_product(digits, packed, bits, C)
+    assert max(sizes) <= cap and len(sizes) == B * 2  # 6 elements x rows {0, 1}, {2}
+    np.testing.assert_array_equal(got.numpy(), want.numpy())

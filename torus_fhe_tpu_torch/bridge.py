@@ -5,7 +5,9 @@ LWE key bits, the compact TGSW samples and the keyswitch table of a JAX
 ``SecretKey``/``CloudKey`` (``np.asarray`` of each field) and rebuilds its own
 F-block key from the samples. The same holds for the 3gen multikey keys
 (``MKSecretKey``, ``MKCloudKey`` made with ``keep_samples=True``), for the
-public key, the packing key and additive shares. No JAX import is needed
+CCS and KMS multikey keys (their cloud keys by field name; their secret keys
+through ``mk_secret_keys_from_numpy``), for the public key, the packing key
+and additive shares. No JAX import is needed
 here. Every loader puts its result on ``device``; None is
 the card (core/device.resolve_device), ``"cpu"`` the CPU.
 """
@@ -22,7 +24,7 @@ from .boot.pack import PackingKey
 from .core.device import resolve_device
 from .core.params import SchemeParams, SchemeParams3Gen
 from .lwe import LweKey, LweSample
-from .mk import keys3gen
+from .mk import ccs, keys3gen, kms
 from .mk.samples import MKLweSample
 from .rlwe import RLweKey
 from .threshold.additive import AdditiveShares
@@ -55,10 +57,11 @@ def lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> LweSample:
                      torch.tensor(np.asarray(b, np.int32), device=device))
 
 
-def mk_secret_keys_from_numpy(params: SchemeParams3Gen, lwe_keys, rlwe_keys,
-                              device=None) -> list:
+def mk_secret_keys_from_numpy(params, lwe_keys, rlwe_keys, device=None) -> list:
     """lwe_keys: per party (n,) LWE key bits (``sk.lwe.key``); rlwe_keys: per
-    party (k, N) ternary ring keys (``sk.rlwe.key``)."""
+    party (k, N) ring keys (``sk.rlwe.key``: ternary for the 3gen sets,
+    binary for CCS and KMS). ``params``: any multikey set; each key is a
+    (lwe, rlwe) pair, which every multikey scheme's functions read."""
     device = resolve_device(device)
     return [keys3gen.MKSecretKey(
         LweKey(torch.tensor(np.asarray(lk, np.int32), device=device)),
@@ -77,6 +80,22 @@ def mk_cloud_key_from_numpy(params: SchemeParams3Gen, samples: np.ndarray,
     return keys3gen.cloud_key_from_samples(
         params, np.array(samples, np.int64), torch.tensor(np.asarray(ks_mat, np.int8)),
         parties, forms, resolve_device(device), keep_samples=True)
+
+
+def ccs_cloud_key_from_numpy(params, parties: int, device=None, **fields) -> ccs.CCSCloudKey:
+    """``fields``: the arrays of a JAX ``CCSCloudKey`` by field name
+    (``d_sel``, ``f0_sel``, ``f1_sel`` or the conv form's ``d_kern``,
+    ``f0_kern``, ``f1_kern``; ``pk_kern``, ``sk_kern``, ``ks_mats``), placed
+    on ``device`` in this package's layout (``mk.ccs.cloud_key_from_fields``)."""
+    return ccs.cloud_key_from_fields(params, int(parties), fields, resolve_device(device))
+
+
+def kms_cloud_key_from_numpy(params, parties: int, device=None, **fields) -> kms.KMSCloudKey:
+    """``fields``: the arrays of a JAX ``KMSCloudKey`` by field name
+    (``gsw_sel`` or the conv form's ``gsw_kern``; ``d_kern``, ``f0_kern``,
+    ``f1_kern``, ``pk_kern``, ``sk_kern``, ``ks_mats``), placed on ``device``
+    in this package's layout (``mk.kms.cloud_key_from_fields``)."""
+    return kms.cloud_key_from_fields(params, int(parties), fields, resolve_device(device))
 
 
 def mk_lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> MKLweSample:

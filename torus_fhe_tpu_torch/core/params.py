@@ -1,9 +1,9 @@
-"""Frozen parameter dataclasses for the single-key and the 3rd-gen
-multikey schemes.
+"""Frozen parameter dataclasses for the single-key scheme and the three
+multikey schemes (3rd-gen AKÖ, 1st-gen CCS, 2nd-gen KMS).
 
-Port of torus_fhe_tpu/core/params.py (the single-key and 3gen parts).
-Parameters are static Python values; equal field by field to the JAX
-package's.
+Port of torus_fhe_tpu/core/params.py. Parameters are static Python values;
+equal field by field, and in the same field order, to the JAX package's (the
+key files name the class and its fields, utils/serialize.py).
 """
 
 from __future__ import annotations
@@ -285,6 +285,159 @@ def test_parameters_3gen(parties: int = 2, n: int = 16, N: int = 64) -> SchemePa
     return SchemeParams3Gen(n, 2**-13.52, N, 1, 64, 2, 7, 2**-30.70, 3, 3, 2**-13.52, parties)
 
 
+@dataclass(frozen=True)
+class SchemeParamsCCS:
+    """1st-gen (CCS) multikey parameters: a 32-bit torus throughout, one
+    gadget (bs_*) for the uni-encryptions, the public keys and the shared key."""
+
+    lwe_size: int
+    lwe_noise_stddev: float
+
+    rlwe_polynomial_degree: int
+    rlwe_mask_size: int
+    rlwe_bits: int
+
+    bs_decomp_length: int
+    bs_log2_base: int
+    bs_noise_stddev: float
+
+    ks_decomp_length: int
+    ks_log2_base: int
+    ks_noise_stddev: float
+
+    max_parties: int
+
+    @property
+    def lwe(self) -> LweParams:
+        return LweParams(self.lwe_size)
+
+    @property
+    def rlwe(self) -> RLweParams:
+        return RLweParams(self.rlwe_polynomial_degree, self.rlwe_mask_size, self.rlwe_bits)
+
+    @property
+    def tgsw(self) -> TGswParams:
+        return TGswParams(self.bs_decomp_length, self.bs_log2_base, self.rlwe_bits)
+
+    @property
+    def ks(self) -> KeyswitchParams:
+        return KeyswitchParams(self.ks_decomp_length, self.ks_log2_base)
+
+
+def mktfhe_parameters_2party_ccs() -> SchemeParamsCCS:
+    return SchemeParamsCCS(560, 3.05e-5, 1024, 1, 32, 3, 9, 3.72e-9, 8, 2, 3.05e-5, 2)
+
+
+def mktfhe_parameters_4party_ccs() -> SchemeParamsCCS:
+    return SchemeParamsCCS(560, 3.05e-5, 1024, 1, 32, 4, 8, 3.72e-9, 8, 2, 3.05e-5, 4)
+
+
+def mktfhe_parameters_8party_ccs() -> SchemeParamsCCS:
+    return SchemeParamsCCS(560, 3.05e-5, 1024, 1, 32, 5, 6, 3.72e-9, 8, 2, 3.05e-5, 8)
+
+
+def mktfhe_parameters_16party_ccs() -> SchemeParamsCCS:
+    return SchemeParamsCCS(560, 3.05e-5, 1024, 1, 32, 12, 2, 3.72e-9, 8, 2, 3.05e-5, 16)
+
+
+def test_parameters_ccs(parties: int = 2, n: int = 16, N: int = 64) -> SchemeParamsCCS:
+    """Tiny insecure CCS parameter set for unit tests (the 2-party gadget,
+    Bg = 2^9: digits wider than a byte)."""
+    return SchemeParamsCCS(n, 3.05e-5, N, 1, 32, 3, 9, 3.72e-9, 8, 2, 3.05e-5, parties)
+
+
+@dataclass(frozen=True)
+class SchemeParamsKMS:
+    """2nd-gen (KMS) multikey parameters: a 64-bit ring torus, three gadgets
+    (gsw_* for the per-party TGSW of the LWE key bits, lev_* for the TLev
+    accumulator, uni_* for the relinearisation key) and a 32-bit LWE torus."""
+
+    lwe_size: int
+    lwe_noise_stddev: float
+
+    rlwe_polynomial_degree: int
+    rlwe_mask_size: int
+    rlwe_bits: int
+
+    gsw_decomp_length: int
+    gsw_log2_base: int
+    gsw_noise_stddev: float
+
+    lev_decomp_length: int
+    lev_log2_base: int
+
+    uni_decomp_length: int
+    uni_log2_base: int
+    uni_noise_stddev: float
+
+    ks_decomp_length: int
+    ks_log2_base: int
+    ks_noise_stddev: float
+
+    max_parties: int
+
+    @property
+    def lwe(self) -> LweParams:
+        return LweParams(self.lwe_size)
+
+    @property
+    def rlwe(self) -> RLweParams:
+        return RLweParams(self.rlwe_polynomial_degree, self.rlwe_mask_size, self.rlwe_bits)
+
+    @property
+    def tgsw(self) -> TGswParams:
+        return TGswParams(self.gsw_decomp_length, self.gsw_log2_base, self.rlwe_bits)
+
+    @property
+    def tlev(self) -> TGswParams:
+        return TGswParams(self.lev_decomp_length, self.lev_log2_base, self.rlwe_bits)
+
+    @property
+    def uni(self) -> TGswParams:
+        return TGswParams(self.uni_decomp_length, self.uni_log2_base, self.rlwe_bits)
+
+    @property
+    def ks(self) -> KeyswitchParams:
+        return KeyswitchParams(self.ks_decomp_length, self.ks_log2_base)
+
+
+def mktfhe_parameters_2party_kms(fast: bool = False) -> SchemeParamsKMS:
+    uni = (3, 10) if fast else (2, 13)
+    return SchemeParamsKMS(560, 3.05e-5, 2048, 1, 64, 3, 13, 4.63e-18,
+                           2, 7, uni[0], uni[1], 4.63e-18, 8, 2, 3.05e-5, 2)
+
+
+def mktfhe_parameters_4party_kms(fast: bool = False) -> SchemeParamsKMS:
+    uni = (7, 6) if fast else (5, 8)
+    return SchemeParamsKMS(560, 3.05e-5, 2048, 1, 64, 5, 8, 4.63e-18,
+                           2, 8, uni[0], uni[1], 4.63e-18, 8, 2, 3.05e-5, 4)
+
+
+def mktfhe_parameters_8party_kms(fast: bool = False) -> SchemeParamsKMS:
+    uni = (7, 4) if fast else (8, 4)
+    return SchemeParamsKMS(560, 3.05e-5, 2048, 1, 64, 4, 11, 4.63e-18,
+                           3, 6, uni[0], uni[1], 4.63e-18, 8, 2, 3.05e-5, 8)
+
+
+def mktfhe_parameters_16party_kms(fast: bool = False) -> SchemeParamsKMS:
+    uni = (7, 4) if fast else (9, 4)
+    return SchemeParamsKMS(560, 3.05e-5, 2048, 1, 64, 5, 9, 4.63e-18,
+                           3, 6, uni[0], uni[1], 4.63e-18, 8, 2, 3.05e-5, 16)
+
+
+def mktfhe_parameters_32party_kms(fast: bool = False) -> SchemeParamsKMS:
+    """The fast and the plain set are the same at 32 parties."""
+    return SchemeParamsKMS(560, 3.05e-5, 2048, 1, 64, 6, 8, 4.63e-18,
+                           3, 7, 16, 2, 4.63e-18, 8, 2, 3.05e-5, 32)
+
+
+def test_parameters_kms(parties: int = 2, n: int = 16, N: int = 64) -> SchemeParamsKMS:
+    """Tiny insecure KMS parameter set for unit tests (64-bit torus, the
+    2-party gadgets, a small ring)."""
+    return SchemeParamsKMS(n, 3.05e-5, N, 1, 64, 3, 13, 4.63e-18,
+                           2, 7, 2, 13, 4.63e-18, 8, 2, 3.05e-5, parties)
+
+
 # The JAX package's registry names for the sets this package defines.
 PARAMETER_REGISTRY = {
     "tfhe_80": tfhe_parameters_80,
@@ -305,4 +458,13 @@ PARAMETER_REGISTRY = {
     "mk_128party_3gen": mktfhe_parameters_128party_3gen,
     "mk_256party_3gen": mktfhe_parameters_256party_3gen,
     "mk_512party_3gen": mktfhe_parameters_512party_3gen,
+    "mk_2party_ccs": mktfhe_parameters_2party_ccs,
+    "mk_4party_ccs": mktfhe_parameters_4party_ccs,
+    "mk_8party_ccs": mktfhe_parameters_8party_ccs,
+    "mk_16party_ccs": mktfhe_parameters_16party_ccs,
+    "mk_2party_kms": mktfhe_parameters_2party_kms,
+    "mk_4party_kms": mktfhe_parameters_4party_kms,
+    "mk_8party_kms": mktfhe_parameters_8party_kms,
+    "mk_16party_kms": mktfhe_parameters_16party_kms,
+    "mk_32party_kms": mktfhe_parameters_32party_kms,
 }

@@ -1,9 +1,11 @@
-"""3rd-gen (AKÖ) multikey TFHE: samples, keys, bootstrap and gates.
+"""Multikey TFHE: the 3rd-gen (AKÖ) samples, keys, bootstrap and gates at
+the top level, and the 1st-gen (CCS) and 2nd-gen (KMS) schemes as the
+modules ``ccs`` and ``kms``.
 
-Port of the 3gen names of torus_fhe_tpu/mk/__init__.py.
+Port of torus_fhe_tpu/mk/__init__.py.
 """
 
-from . import boot3gen, gates3gen, keys3gen, samples
+from . import boot3gen, ccs, gates3gen, keys3gen, kms, samples
 from .boot3gen import mk_bootstrap, mk_bootstrap_wo_keyswitch, mk_keyswitch
 from .keys3gen import (CRP, MKCloudKey, MKSecretKey, common_public_key,
                        default_forms, gen_crp, mk_cloud_keygen, mk_party_keygen,

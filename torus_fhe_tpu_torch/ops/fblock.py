@@ -355,27 +355,42 @@ def contract_rows_fblock(d8: torch.Tensor, fstep: torch.Tensor, geom: FBlockGeom
     return comb.movedim(1, 2).reshape(B, C, geom.N)
 
 
+def stack_blocks(blocks: list) -> torch.Tensor:
+    """The int8 limb blocks of ``poly.digits_to_i8_rows`` as one (nl, ...)
+    tensor (a view when there is one block)."""
+    return torch.stack(blocks) if len(blocks) > 1 else blocks[0][None]
+
+
+def contract_blocks_fblock(blocks: torch.Tensor, fstep: torch.Tensor, geom: FBlockGeometry,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """Contract the int8 limb blocks of digit rows against one expanded
+    F-block step: blocks (nl, B, R, N), block m the byte limb m of each digit
+    (``stack_blocks``). Returns (B, C, N) ``dtype``: sum_m (the block's
+    contraction) << 8m. The blocks are stacked along the batch, so this is
+    one matmul whatever the digit width; integer sums, so the words are
+    those of one contraction per block."""
+    nl, B, _, N = blocks.shape
+    delta = contract_rows_fblock(blocks.reshape(nl * B, geom.R, N), fstep, geom, dtype)
+    if nl == 1:
+        return delta
+    delta = delta.reshape(nl, B, geom.C, N)
+    # an int32 sum is taken in int64, then wraps
+    return (delta << _limb_shifts(nl, dtype, blocks.device)).sum(0).to(dtype)
+
+
 def apply_fblock(t: torch.Tensor, fstep: torch.Tensor, geom: FBlockGeometry,
                  decomp_length: int, log2_base: int, offset: int) -> torch.Tensor:
     """delta[c] = sum_r g(t)_r (*) K_{r,c}: gadget-decompose a (B, C, N)
     input and contract against one expanded F-block step, in t's dtype.
 
     Digits wider than a byte split into int8 limb blocks
-    (``poly.digits_to_i8_rows``) whose products are shifted by 8m and summed.
-    The blocks are stacked along the batch, so a step is one matmul whatever
-    the digit width; integer sums, so the words are those of one contraction
-    per block."""
+    (``poly.digits_to_i8_rows``) whose products are shifted by 8m and summed
+    (``contract_blocks_fblock``)."""
     B, C, N = t.shape
     digits = poly.decompose(t, decomp_length, log2_base, geom.bits, offset)
     rows = digits.transpose(-3, -2).reshape(B, geom.R, N)  # rows r = (level, poly)
-    blocks = poly.digits_to_i8_rows(rows, log2_base)
-    if len(blocks) == 1:
-        return contract_rows_fblock(blocks[0], fstep, geom, t.dtype)
-    nl = len(blocks)
-    delta = contract_rows_fblock(torch.stack(blocks).reshape(nl * B, geom.R, N), fstep, geom,
-                                 t.dtype).reshape(nl, B, C, N)
-    # an int32 sum is taken in int64, then wraps
-    return (delta << _limb_shifts(nl, t.dtype, t.device)).sum(0).to(t.dtype)
+    return contract_blocks_fblock(stack_blocks(poly.digits_to_i8_rows(rows, log2_base)), fstep,
+                                  geom, t.dtype)
 
 
 def stepvec_acc0(mu: int, barb: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:

@@ -2,11 +2,12 @@
 decomposition, an exact schoolbook oracle, the limb FFT product of huge
 rings, the exact int8 matrix product and the packing contraction.
 
-Port of torus_fhe_tpu/ops/poly.py without its XLA conv backend and batched
-runtime-kernel products: what the F-block blind rotate (digits of any width,
-32- and 64-bit torus), the keyswitch, threshold decryption and LWE -> RLWE
-packing use. torch has no uint32 arithmetic, so the limb split works on the
-unsigned residue held in int64.
+Port of torus_fhe_tpu/ops/poly.py without its XLA conv backend and its
+single-row batched-kernel product (no caller): what the F-block blind rotate
+(digits of any width, 32- and 64-bit torus), the keyswitch, threshold
+decryption, LWE -> RLWE packing and the CCS and KMS multikey products use.
+torch has no uint32 arithmetic, so the limb split works on the unsigned
+residue held in int64.
 """
 
 from __future__ import annotations
@@ -264,8 +265,84 @@ def pack_kernels_host(kernels: np.ndarray, bits: int) -> np.ndarray:
         limbs.reshape(shape[:-4] + (shape[-4] * shape[-3], shape[-2], shape[-1])))
 
 
+def unpack_kernels_host(packed: np.ndarray, bits: int, out_polys: int) -> np.ndarray:
+    """The inverse of ``pack_kernels_host``: (..., C * L, R, N) int8 limbs
+    with the window flipped -> (..., R, C, N) torus ints (int32 for 32 bits,
+    int64 for 64), host numpy."""
+    L = n_limbs_for(bits)
+    p = np.asarray(packed)[..., ::-1].astype(np.int64)
+    p = p.reshape(p.shape[:-3] + (out_polys, L) + p.shape[-2:])
+    vals = np.zeros(p.shape[:-4] + (out_polys,) + p.shape[-2:], np.int64)
+    with np.errstate(over="ignore"):
+        for m in range(L):
+            vals += p[..., m, :, :] << np.int64(8 * m)
+    return np.moveaxis(vals.astype(np.int32 if bits <= 32 else np.int64), -3, -2)
+
+
+def pack_kernels_traced(kernels: torch.Tensor, bits: int) -> torch.Tensor:
+    """``pack_kernels_host`` of a tensor on its device: the layout of
+    runtime kernels, such as the KMS TLev accumulator, whose key side of a
+    negacyclic contraction is itself a ciphertext.
+
+    kernels: (..., R, C, N) torus ints. Returns (..., C * L, R, N) int8,
+    byte-equal to ``pack_kernels_host`` of the same values.
+    """
+    limbs = limb_split_signed(kernels, bits).movedim(-1, -2).flip(-1)  # (..., R, C, L, N)
+    limbs = limbs.movedim(-4, -2)  # (..., C, L, R, N)
+    s = limbs.shape
+    return limbs.reshape(s[:-4] + (s[-4] * s[-3], s[-2], s[-1]))
+
+
 INT32_TERMS = (2**31 - 1) // 2**14  # |digit * limb| <= 128 * 128: exact int32 sums of this many
 TOEPLITZ_BYTES = 1 << 29  # the digit-side Toeplitz rows held at once
+
+
+def _folded_products(digits: torch.Tensor, packed: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The per-limb negacyclic products sum_r digits[b, r] (*) packed[cl, r]
+    before the limb shifts: digits (B, R, N) int8 and packed (CL, R, N) int8
+    (window flipped) give (B, CL, N) in ``dtype``.
+
+    The circulant sits on the digit side, so the key side stays the compact
+    (CL, R * N) limbs. With the window flipped, out[j] = sum_t
+    (x_u[j + t] - x_w[j + t]) * packed[t] for x_u = [0 * (N - 1), d] (the
+    terms t <= j) and x_w = [d[1:], 0 * N] (the wrapped ones, which carry the
+    minus sign): both halves are windows of a padded sequence (``unfold``),
+    stacked as rows of ONE ``int8_matmul`` whose sums are subtracted after,
+    so no digit is negated (+128 does not fit in int8). The work runs in
+    chunks of digit rows, each at most INT32_TERMS products a sum (the int32
+    sums stay exact whatever the accumulator does on overflow), and of batch
+    elements, so that a chunk holds at most TOEPLITZ_BYTES of Toeplitz rows
+    whatever the batch. The row chunks add in ``dtype``: wrapping int32 is
+    exact mod 2^32, and int64 keeps the carries past 2^32 that the 64-bit
+    torus needs. The batch chunks change no sum.
+    """
+    B, R, N = digits.shape
+    CL = packed.shape[0]
+    if 2 * N * N > TOEPLITZ_BYTES:
+        raise ValueError(f"N={N}: one Toeplitz row block is {2 * N * N} bytes, over "
+                         f"TOEPLITZ_BYTES={TOEPLITZ_BYTES}")
+    cols = -(-CL // 8) * 8  # int8_matmul's N: a multiple of 8
+    key = torch.cat([packed.reshape(CL, R * N), packed.new_zeros((cols - CL, R * N))])
+    rows = max(1, min(R, INT32_TERMS // N, TOEPLITZ_BYTES // (2 * N * N)))
+    keys = [key[:, r0 * N:(r0 + rows) * N].contiguous().t() for r0 in range(0, R, rows)]
+    per = max(1, min(B, TOEPLITZ_BYTES // (2 * rows * N * N)))
+    out = []
+    for b0 in range(0, B, per):
+        d = digits[b0:b0 + per]
+        b = d.shape[0]
+        x = torch.stack([torch.cat([d.new_zeros((b, R, N - 1)), d], -1),
+                         torch.cat([d[..., 1:], d.new_zeros((b, R, N))], -1)])
+        acc = None
+        for k, r0 in enumerate(range(0, R, rows)):
+            r1 = min(R, r0 + rows)
+            toeplitz = x[:, :, r0:r1].unfold(-1, N, 1)  # (2, b, r, j, t) = x[..., j + t]
+            mat = toeplitz.permute(0, 1, 3, 2, 4).reshape(2 * b * N, (r1 - r0) * N)
+            part = int8_matmul(mat, keys[k]).to(dtype)
+            acc = part if acc is None else acc + part
+        folded = acc.reshape(2, b, N, cols)[..., :CL]
+        out.append((folded[0] - folded[1]).permute(0, 2, 1))
+    return torch.cat(out)
 
 
 def negacyclic_extern_product(digits: torch.Tensor, packed: torch.Tensor, bits: int,
@@ -274,20 +351,8 @@ def negacyclic_extern_product(digits: torch.Tensor, packed: torch.Tensor, bits: 
 
     digits: (B, R, N) int8; packed: (C * L, R, N) int8 from
     ``pack_kernels_host`` (L = n_limbs(bits)), on digits' device. Returns
-    (B, C, N) torus ints (int32 for 32 bits, int64 for 64).
-
-    The circulant sits on the digit side, so the key side stays the compact
-    (C * L, R * N) limbs. With the window flipped, out[j] = sum_t
-    (x_u[j + t] - x_w[j + t]) * packed[t] for x_u = [0 * (N - 1), d] (the
-    terms t <= j) and x_w = [d[1:], 0 * N] (the wrapped ones, which carry the
-    minus sign): both halves are windows of a padded sequence (``unfold``),
-    stacked as rows of ONE ``int8_matmul`` whose sums are subtracted after,
-    so no digit is negated (+128 does not fit in int8). The reduction runs
-    in chunks of digit rows, each at most INT32_TERMS products a sum (the
-    int32 sums stay exact whatever the accumulator does on overflow) and at
-    most TOEPLITZ_BYTES of Toeplitz rows. The chunks add in the torus
-    dtype: wrapping int32 is exact mod 2^32 after the limb shifts, and at 64
-    bits the carries past 2^32 count, so they add in int64.
+    (B, C, N) torus ints (int32 for 32 bits, int64 for 64): the limb
+    products of ``_folded_products`` in the torus dtype, each shifted by 8m.
     """
     B, R, N = digits.shape
     CL = packed.shape[0]
@@ -295,22 +360,31 @@ def negacyclic_extern_product(digits: torch.Tensor, packed: torch.Tensor, bits: 
     if CL % L or packed.shape[1:] != (R, N) or N % 8:
         raise ValueError(f"packed {tuple(packed.shape)} against digits {tuple(digits.shape)}, "
                          f"{L} limbs: want ({out_polys} * {L}, {R}, {N}) and N a multiple of 8")
-    cols = -(-CL // 8) * 8  # int8_matmul's N: a multiple of 8
-    key = torch.cat([packed.reshape(CL, R * N), packed.new_zeros((cols - CL, R * N))])
-    x = torch.stack([torch.cat([digits.new_zeros((B, R, N - 1)), digits], -1),
-                     torch.cat([digits[..., 1:], digits.new_zeros((B, R, N))], -1)])
     dtype = torch.int32 if bits <= 32 else torch.int64
-    rows = max(1, min(INT32_TERMS // N, TOEPLITZ_BYTES // (2 * B * N * N)))
-    acc = None
-    for r0 in range(0, R, rows):
-        r1 = min(R, r0 + rows)
-        toeplitz = x[:, :, r0:r1].unfold(-1, N, 1)  # (2, B, r, j, t) = x[..., j + t]
-        mat = toeplitz.permute(0, 1, 3, 2, 4).reshape(2 * B * N, (r1 - r0) * N)
-        part = int8_matmul(mat, key[:, r0 * N:r1 * N].contiguous().t()).to(dtype)
-        acc = part if acc is None else acc + part
-    folded = acc.reshape(2, B, N, cols)[..., :CL]
-    folded = (folded[0] - folded[1]).permute(0, 2, 1).reshape(B, out_polys, L, N)
+    folded = _folded_products(digits, packed, dtype).reshape(B, out_polys, L, N)
     out = torch.zeros((B, out_polys, N), dtype=dtype, device=digits.device)
     for m in range(L):
         out = out + (folded[:, :, m] << (8 * m))
     return out
+
+
+def negacyclic_extern_product_batched_kernels_multirow(rows: torch.Tensor,
+                                                       packed: torch.Tensor) -> torch.Tensor:
+    """Per-element kernels, many digit-row groups an element: out[b, m, cl]
+    = sum_r rows[b, m, r] (*) packed[b, cl, r], the limb products before any
+    shift.
+
+    rows: (B, M, R, N) int8, M groups that all contract against element b's
+    kernel (the KMS TLev relinearisation: accumulator polys x digit limb
+    blocks against one runtime TLev sample); packed: (B, C * L, R, N) int8
+    from ``pack_kernels_traced``. Returns (B, M, C * L, N) int32, as the JAX
+    package's product does: exact while a limb sum stays in int32 (R * N <=
+    INT32_TERMS at every registry set), wrapping mod 2^32 past it. The limb
+    and digit-block shifts are the caller's. Each element is one
+    ``_folded_products`` with its own key side: ``torch._int_mm`` is 2-D
+    only, so the elements take turns.
+    """
+    B, M, R, N = rows.shape
+    if packed.shape[0] != B or packed.shape[2:] != (R, N) or N % 8:
+        raise ValueError(f"packed {tuple(packed.shape)} against rows {tuple(rows.shape)}")
+    return torch.stack([_folded_products(rows[b], packed[b], torch.int32) for b in range(B)])

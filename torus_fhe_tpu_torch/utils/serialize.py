@@ -13,7 +13,10 @@ The rotate's key form is rebuilt from the samples on load, on ``device``
 (None: the card, core/device.resolve_device; ``"cpu"``: the CPU). This
 package builds the F-block forms only: a file that recorded the JAX
 package's ``conv`` form loads as ``fblock``, and a legacy file that holds
-conv kernels and no samples cannot be loaded. The keyswitch tables are
+conv kernels and no samples cannot be loaded. The CCS and KMS cloud keys
+are stored by the JAX package's field names in its fb form; their files in
+the JAX conv form load too, the key lines rebuilt from the packed kernels.
+The keyswitch tables are
 written without the zero columns this package pads them with
 (boot/keyswitch.pad_table), so that the JAX package reads them.
 """
@@ -225,6 +228,55 @@ def load_mk_cloud_key(path: str, forms=None, device=None):
     return keys3gen.cloud_key_from_samples(
         params, arrs["samples"].astype(np.int64), torch.from_numpy(arrs["ks"].astype(np.int8)),
         parties, tuple(forms), resolve_device(device), keep_samples=True)
+
+
+_CCS_FIELDS = ("d_kern", "f0_kern", "f1_kern", "pk_kern", "sk_kern",
+               "ks_mats", "d_sel", "f0_sel", "f1_sel", "pk_fb", "sk_fb")
+_KMS_FIELDS = ("gsw_kern", "d_kern", "f0_kern", "f1_kern", "pk_kern",
+               "sk_kern", "ks_mats", "gsw_sel")
+
+
+def _save_scheme_key(path: str, kind: str, names: tuple, ck) -> None:
+    """A CCS or KMS cloud key under the JAX package's field names (those
+    this package's key holds; the keyswitch tables without their padding
+    columns), with ``parties`` in the extra metadata."""
+    fields = {f: getattr(ck, f, None) for f in names}
+    fields["ks_mats"] = ck.ks_mats[..., :(ck.params.lwe_size + 1) * 4]
+    save_named(path, kind, fields, params=ck.params, extra_meta={"parties": ck.parties})
+
+
+def save_ccs_cloud_key(path: str, ck) -> None:
+    """The CCS cloud key: the d1/f0/f1 lines, the expanded and the packed
+    public and shared keys, the keyswitch tables (the JAX package's fb
+    form, which it loads and runs)."""
+    _save_scheme_key(path, "ccs_cloud_key", _CCS_FIELDS, ck)
+
+
+def load_ccs_cloud_key(path: str, device=None):
+    """Load a CCS cloud key onto ``device``, in either JAX form: a file with
+    only the conv form's packed kernels has its lines rebuilt from them."""
+    from ..mk import ccs
+
+    kind, arrs, params, extra = load_named(path)
+    _want_kind(kind, "ccs_cloud_key", path)
+    return ccs.cloud_key_from_fields(params, int(extra["parties"]), arrs, resolve_device(device))
+
+
+def save_kms_cloud_key(path: str, ck) -> None:
+    """The KMS cloud key: the TGSW lines, the packed uni, public and shared
+    kernels, the keyswitch tables (the JAX package's fb form)."""
+    _save_scheme_key(path, "kms_cloud_key", _KMS_FIELDS, ck)
+
+
+def load_kms_cloud_key(path: str, device=None):
+    """Load a KMS cloud key onto ``device``, in either JAX form: a file with
+    only the conv form's packed TGSW kernels has its lines rebuilt from
+    them."""
+    from ..mk import kms
+
+    kind, arrs, params, extra = load_named(path)
+    _want_kind(kind, "kms_cloud_key", path)
+    return kms.cloud_key_from_fields(params, int(extra["parties"]), arrs, resolve_device(device))
 
 
 def save_share_set(path: str, repo) -> None:
