@@ -18,7 +18,7 @@ read just after:
   encrypt -> mk_gate_and / mk_gate_nand -> decrypt) at mk_2party_3gen
   (expanded key, blind_rotate.cu) and at mk_4party_3gen and mk_8party_3gen
   (compact key, blind_rotate_sel.cu), decrypt-checked, with the boot-noise
-  std held to the committed envelope of measurements/;
+  std held to the committed envelope of measurements/ (through N2 below);
 - the party-pipelined multikey bootstrap (parallel/mk_pipeline.py:
   party-sharded key -> mk_bootstrap_pipelined -> NAND -> decrypt) at
   mk_8party_3gen (compact key, B=256, 4 microbatches: 32 launches of
@@ -82,14 +82,33 @@ read just after:
   package runs both outside Pallas), each with the counts at 0 before it:
   E1, mk_2party_ccs at full registry width (n = 560, N = 1024, l = 3,
   Bg = 2^9, 1,120 CMux steps, 32-bit): party and cloud keygen on the card, a
-  NAND batch of 256 over all four input pairs, 0 wrong and max |phase -
-  ideal| < 1/16, its wall time, int8 products, the host/device split of a
-  step and the bound from shapes; E2, mk_2party_kms at full width (N = 2048,
+  NAND batch of 256 over all four input pairs, decrypted, its noise through
+  N4's report (KMS: 0 wrong and max |phase - ideal| < 1/16; CCS: the std
+  against its prediction and the wrong count it allows), its wall time, int8
+  products, the host/device split of a step and the bound from shapes; E2, mk_2party_kms at full width (N = 2048,
   64-bit): the same with fast_boot, its rotates and its relinearisation
   timed apart, and a fast_boot=False batch of 16; E3, both schemes at the
   test sets (2 and 3 parties) on the same keys on the card and the CPU,
   equal words, and a save -> load round trip of each full-width key on the
-  card giving the same NAND words.
+  card giving the same NAND words;
+- the measurement modules (utils/noise.py, utils/profiling.py), each run with
+  the counts at 0 before it and read after, each NoiseReport's JSON and each
+  profile on a line of its own: N1, measure_single_key at tfhe_128_tpu_fast,
+  16,384 trials with its own keygen, 0 wrong, both rounded-phase classes 0,
+  boot-noise std within NOISE_BAND of the committed 0.004520; N2, the 3gen
+  report step on the keys multikey() and wide_route() hold (300 trials at 2,
+  4, 8 parties, 128 at 16: their noise check, 0 wrong, std against the
+  envelopes, the pre-keyswitch std beside JAX's), and the public
+  measure_multikey at mk_2party_3gen; N3, the exact 64-bit route
+  (fast_form=False: the lines of the raw samples, no kernel) at mk_2party_3gen,
+  300 trials, its key through cache_path, std against the committed exact
+  envelope, the ms a step split into host and device; N4, the CCS and KMS
+  report steps on E1's and E2's keys (256 trials: their noise check); N5, a
+  device trace of one bootsAND at the fast set (B=1024) and one 8-party AND
+  (B=256), the rotate kernel the largest category; N6, run_mk_pipeline at
+  mk_4party_3gen (compact key) on a synthetic cardio-format CSV, every
+  prediction equal to plaintext_oracle and the threshold tail on ring 4 n.
+  N2, N4 and N5 run where their keys are held; N1, N3 and N6 after E3.
 
 The compact kernel is also held against the expanded one on the full
 2-party key, each kernel against its plain version on one pipeline stage
@@ -192,6 +211,21 @@ FFT_TOL = 2**12  # |diff| of two f64 FFT products, wrap-aware: < 2^-20 of the to
 CLI_PARAMS = "tfhe_128_tpu_fast"  # D4
 CLI_KNN = (7, 1, 4, 12, 3)  # D4: train rows, test rows, columns, width, k
 AUX = {}  # phase -> its record: the "threshold_aux" JSON line
+# N1-N6: the noise harness (utils/noise.py) and the profile (utils/profiling.py)
+N1_TRIALS = 16384  # the committed run's count
+N1_ENVELOPE = 0.004520  # boot-noise std, measurements/log__tfhe_128_tpu_fast_trials-16384.log
+N2_TRIALS = {"mk_2party_3gen": 300, "mk_4party_3gen": 300, "mk_8party_3gen": 300,
+             "mk_16party_3gen": 128}
+# pre_ks_noise_std of measurements/log__mk_{2,4,8,16}party_3gen_trials-300.log; the
+# port's is held to NOISE_BAND times it where it is above PRE_KS_GATE
+PRE_KS_JAX = {"mk_2party_3gen": 0.00845, "mk_4party_3gen": 0.00190, "mk_8party_3gen": 0.00907,
+              "mk_16party_3gen": 2.46e-5}
+PRE_KS_GATE = 1e-4
+N3_SET, N3_TRIALS = "mk_2party_3gen", 300  # the exact route
+N3_ENVELOPE = 0.01625  # measurements/log__mk_2party_3gen_trials-300_exact.log
+N4_TRIALS = 256  # the CCS and KMS report steps
+PROFILE_TRIES = 3  # N5: traces taken at most while the profiler drops the rotate kernel's record
+N6_KNN = ("mk_4party_3gen", 4, 5, 2, 8, 3)  # set, parties, train rows, test rows, width, k
 
 
 def log(phase: str, msg: str) -> None:
@@ -254,22 +288,153 @@ def enqueue_and_total(fn):
 
 def device_busy(fn):
     """(milliseconds the card's kernels ran during one call of fn, the five
-    longest as 'name ms'), from torch.profiler; (None, []) where the profiler
-    shows no kernel time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    longest as 'name ms'), from utils.profiling; (None, []) where the trace
+    shows no device lane."""
+    import tempfile
+
+    from torus_fhe_tpu_torch.utils import profiling
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(((getattr(e, "self_device_time_total", 0), e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    rows = [(us, key) for us, key in rows if us > 0]
-    if not rows:
-        return None, []
-    return sum(us for us, _ in rows) / 1e3, [f"{key[:48]} {us / 1e3:.2f}" for us, key in rows[:5]]
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp):
+            fn()
+            torch.cuda.synchronize()
+        if not profiling.has_device_lanes(tmp):
+            return None, []
+        s = profiling.summarize_trace(tmp, top=5)
+    return s["total_device_us"] / 1e3, [f"{name[:48]} {us / 1e3:.2f}" for name, us, _ in s["by_op"]]
+
+
+def launched(fn):
+    """(fn's result, launches of each kernel, wall seconds) of one call of
+    fn, with the kernels' counts at 0 just before it and read just after."""
+    from torus_fhe_tpu_torch.ops import cuda_rotate
+
+    torch.cuda.synchronize()
+    reset_launches(cuda_rotate)
+    out, wall = sync_time(fn)
+    return out, {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+                 "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches}, wall
+
+
+def check_report(tag: str, rep, envelope: float, pre_ks_jax=None,
+                 classes: bool = False) -> None:
+    """Hold a NoiseReport to 0 wrong and its boot-noise std to NOISE_BAND
+    times ``envelope``; its pre-keyswitch std to the band around JAX's where
+    that is above PRE_KS_GATE; with ``classes``, both rounded-phase classes
+    to 0. Prints the report's JSON on a line of its own."""
+    band, ratio = NOISE_BAND, rep.boot_noise_std / envelope
+    fails = [f"{rep.wrong_decryptions} wrong"] if rep.wrong_decryptions else []
+    if not band[0] <= ratio <= band[1]:
+        fails.append(f"boot-noise std {rep.boot_noise_std:.5f} = {ratio:.3f}x {envelope}, "
+                     f"outside {band}")
+    pre = ""
+    if pre_ks_jax is not None:
+        pre_ratio = rep.pre_ks_noise_std / pre_ks_jax
+        pre = f"; pre-keyswitch std {rep.pre_ks_noise_std:.3g} = {pre_ratio:.3f}x JAX's {pre_ks_jax}"
+        if pre_ks_jax > PRE_KS_GATE and not band[0] <= pre_ratio <= band[1]:
+            fails.append(f"pre-keyswitch std {pre_ratio:.3f}x JAX's, outside {band}")
+    if classes and (rep.wrong_phase_gt_quarter or rep.wrong_phase_lt_zero):
+        fails.append(f"rounded-phase classes {rep.wrong_phase_gt_quarter} > 1/4, "
+                     f"{rep.wrong_phase_lt_zero} < 0")
+    log(tag, f"{rep.trials} trials: {rep.wrong_decryptions} wrong; boot-noise std "
+        f"{rep.boot_noise_std:.5f} ({ratio:.3f}x {envelope}), max {rep.boot_noise_max:.5f}; fresh "
+        f"std {rep.fresh_noise_std:.3g}{pre}; rounded phase > 1/4: {rep.wrong_phase_gt_quarter}, "
+        f"< 0: {rep.wrong_phase_lt_zero}; gate {rep.bootstrap_wall_s:.3f} s; keys "
+        f"{rep.bk_bytes / 1e6:.1f} + {rep.ks_bytes / 1e6:.1f} MB")
+    print(json.dumps({"noise": tag, **json.loads(rep.to_json())}), flush=True)
+    if fails:
+        raise AssertionError(f"{tag}: " + "; ".join(fails))
+
+
+def mk_report(sks, ck, scheme: str, trials: int, gen, rng, dev):
+    """(NoiseReport, launches of each kernel, wall s) of the multikey report
+    step (utils/noise.report_multikey) on a key held here: ``trials``
+    random messages, their encryptions and encryptions of True."""
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.utils import noise
+
+    keys = [sk.lwe for sk in sks]
+    msgs = torch.from_numpy(rng.integers(0, 2, trials).astype(bool)).to(dev)
+    ct = mk.mk_encrypt(gen, keys, msgs, ck.params)
+    true_ct = mk.mk_encrypt(gen, keys, torch.ones(trials, dtype=torch.bool, device=dev), ck.params)
+    return launched(lambda: noise.report_multikey(sks, ck, msgs, ct, true_ct, scheme))
+
+
+def noise_3gen(name: str, sks, ck, gen, rng, dev) -> dict:
+    """N2: the 3gen report step on a key held here, N2_TRIALS[name]
+    messages: 0 wrong, boot-noise std within NOISE_BAND of the envelope, the
+    pre-keyswitch std beside JAX's. Returns the launches of each kernel."""
+    rep, counts, _ = mk_report(sks, ck, "3gen", N2_TRIALS[name], gen, rng, dev)
+    check_report(f"N2 {name}", rep, NOISE_ENVELOPE[name], pre_ks_jax=PRE_KS_JAX[name])
+    return counts
+
+
+def profile_phase(tag: str, rotate: str, fn) -> dict:
+    """N5: one call of fn under utils.profiling.device_trace. The rotate
+    kernel's category ``rotate`` must be the largest, and the categories
+    must add up to the device total within 1%. A trace that holds no record
+    of the rotate kernel though the kernel launched (the profiler dropped
+    it) is logged and taken again, up to PROFILE_TRIES traces. Prints a
+    ``profile`` JSON line; returns the launches of each kernel over all
+    traces."""
+    import tempfile
+
+    from torus_fhe_tpu_torch.utils import profiling
+
+    def traced():
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.device_trace(tmp):
+                fn()
+                torch.cuda.synchronize()
+            return profiling.summarize_trace(tmp, top=5)
+
+    total_counts = dict.fromkeys(("blind_rotate", "blind_rotate_sel"), 0)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        s, counts, wall = launched(traced)
+        total_counts = {k: total_counts[k] + counts[k] for k in counts}
+        cats, total = s["by_category"], s["total_device_us"]
+        if rotate in cats or not any(counts.values()):
+            break
+        log(tag, f"trace {attempt}: no record of the rotate kernel, launched {counts} in it; "
+            f"recorded {cats}")
+    print(json.dumps({"profile": tag, "total_device_us": total, "by_category": cats,
+                      "traces": attempt,
+                      "top": [[name[:80], us, pct] for name, us, pct in s["by_op"]]}), flush=True)
+    log(tag, f"device total {total / 1e3:.3f} ms of {wall * 1e3:.1f} ms wall; " + ", ".join(
+        f"{c} {us / 1e3:.3f} ms" for c, us in cats.items()))
+    if not cats or max(cats, key=cats.get) != rotate:
+        raise AssertionError(f"{tag}: the largest category is not {rotate}: {cats}")
+    if abs(sum(cats.values()) - total) > 0.01 * total:
+        raise AssertionError(f"{tag}: categories add to {sum(cats.values())}, total {total}")
+    return total_counts
+
+
+def scan_split(sel, bara, acc, args):
+    """Where a step of the torch-op scan goes, on one 64-step chunk of the
+    compact lines ``sel`` (B gates): (the chunk's wall s, its host-enqueue
+    s, the card's kernel ms of it or None, its five longest kernels, the
+    chunk's wall s at one gate: the host's share)."""
+    from torus_fhe_tpu_torch.ops import fblock
+
+    one_chunk = lambda: fblock.blind_rotate_streamed(acc, sel[:64], bara[:, :64], *args)
+    _, c_enq, c_tot = enqueue_and_total(one_chunk)
+    busy_ms, top = device_busy(one_chunk)
+    one_gate = lambda: fblock.blind_rotate_streamed(acc[:1], sel[:64], bara[:1, :64], *args)
+    one_gate()
+    return c_tot, c_enq, busy_ms, top, min(sync_time(one_gate)[1] for _ in range(3))
+
+
+def scan_shapes(B: int, geom, log2_base: int):
+    """(rows, K, cols, limb blocks) of the scan's one int8 product a step at
+    B gates, and the rotate's bound from shapes in ms (2 ops a MAC as
+    multiplied, at the int8 peak)."""
+    from torus_fhe_tpu_torch.ops import cuda_rotate, poly
+
+    nl = len(poly.digits_to_i8_rows(torch.zeros((1, 8), dtype=torch.int32), log2_base))
+    rows, K, cols = nl * B * geom.nb, geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs
+    return (rows, K, cols, nl), 2 * geom.n * rows * K * cols / cuda_rotate.INT8_OPS_PER_S * 1e3
 
 
 def main() -> int:
@@ -456,6 +621,10 @@ def main() -> int:
         f"{MAIN_BATCH / (ms / 1e3):.1f} rotations/s; p50 bootsAND latency B=1 "
         f"{statistics.median(lat) * 1e3:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    n_launches = profile_phase(f"N5 tfhe_128_tpu_fast bootsAND B={MAIN_BATCH}",
+                               "blind_rotate (expanded key)", lambda: gates.gate_and(ck, cx, cy))
+    if n_launches["blind_rotate_sel"] or not 1 <= n_launches["blind_rotate"] <= PROFILE_TRIES:
+        raise AssertionError(f"N5: launches {n_launches}, want one of blind_rotate a trace")
 
     # P4: the batch-sharded bootsAND over two mesh slots == the single-device one
     from torus_fhe_tpu_torch.parallel import make_mesh
@@ -523,6 +692,9 @@ def main() -> int:
     sharded_ops(rng)
     routes = wide_route(dev, rng)
     routes.update(scheme_phases(dev, rng))
+    for phase in (noise_single_key, noise_3gen_public, exact_route, mk_knn_phase):
+        for k, n in phase(dev, rng, routes).items():
+            n_launches[k] += n
 
     circ = {k: sum(rec["launches"][k] for rec in CIRCUITS.values())
             for k in ("blind_rotate", "blind_rotate_sel")}
@@ -533,7 +705,8 @@ def main() -> int:
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
          "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
-         + pipe["launches"]["blind_rotate"] + circ["blind_rotate"] + aux_launches,
+         + pipe["launches"]["blind_rotate"] + circ["blind_rotate"] + aux_launches
+         + n_launches["blind_rotate"],
          "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
@@ -541,7 +714,7 @@ def main() -> int:
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate_sel.cu",
          "replaces": "torus_fhe_tpu/ops/fblock.py:339, torus_fhe_tpu/parallel/mk_pipeline.py:184",
          "launches": mkr["launches"]["blind_rotate_sel"] + pipe["launches"]["blind_rotate_sel"]
-         + circ["blind_rotate_sel"],
+         + circ["blind_rotate_sel"] + n_launches["blind_rotate_sel"],
          "max_abs_err": max(mkr["err"]["blind_rotate_sel"], pipe["err"]["blind_rotate_sel"]),
          "ms": mkr["ms"]["blind_rotate_sel"],
          "plain_ms": mkr["plain_ms"]["blind_rotate_sel"],
@@ -659,25 +832,25 @@ def multikey(dev, rng) -> dict:
         res["launches"][kernel] += counts[kernel]
         if out.a.shape != (B, parties, params.lwe_size) or out.a.dtype != torch.int32:
             raise AssertionError(f"{name}: gate output {out.a.dtype} {tuple(out.a.shape)}")
-        phase = mk.mk_lwe_phase(out, keys)
-        wrong = int((phase > 0).ne(msgs).sum())
-        want = msgs
+        want, wrong = msgs, int(mk.mk_decrypt(keys, out).ne(msgs).sum())
         for step in range(1, chain_len + 1):
             want = ~(want & ys)
             wrong += int(mk.mk_decrypt(keys, chain[step]).ne(want).sum())
         if wrong:
             raise AssertionError(f"{name}: {wrong} wrong decryptions")
-        ideal = torch.where(msgs, 1 << 29, -(1 << 29)).to(torch.int32)
-        noise = ((phase - ideal).double() / 2.0**32).std().item()
-        env = NOISE_ENVELOPE[name]
-        if not NOISE_BAND[0] <= noise / env <= NOISE_BAND[1]:
-            raise AssertionError(f"{name}: boot-noise std {noise:.5f} is {noise / env:.3f}x the "
-                                 f"envelope {env}, outside {NOISE_BAND}")
         log(f"mk {name}", f"{'+'.join(forms)} key, B={B}: AND and {chain_len} NAND decrypt "
             f"correctly (0 wrong of {B * (1 + chain_len)}); {kernel} launched {counts[kernel]}x, "
-            f"{other} 0x; boot-noise std {noise:.5f} ({noise / env:.3f}x envelope {env}); "
-            f"keygen {t_keygen:.2f} s, AND {t_and:.3f} s = {B / t_and:.1f} gates/s; peak memory "
-            f"{peak / 1e9:.2f} GB")
+            f"{other} 0x; keygen {t_keygen:.2f} s, AND {t_and:.3f} s = {B / t_and:.1f} gates/s; "
+            f"peak memory {peak / 1e9:.2f} GB")
+        # N2: the noise, through the harness's report step on this key
+        n2 = noise_3gen(name, sks, main_ck, gen, rng, dev)
+        if parties == 8:
+            n5 = profile_phase(f"N5 {name} AND B={B}", "blind_rotate_sel (compact key)",
+                               lambda: gates3gen.mk_gate_and(main_ck, ct, ct_true))
+            n2 = {k: n2[k] + n5[k] for k in names}
+        if n2[other] or not 3 + (parties == 8) <= n2[kernel] <= 3 + (parties == 8) * PROFILE_TRIES:
+            raise AssertionError(f"{name} N2/N5: launches {n2}, want 3 (N5: one a trace) of {kernel}")
+        res["launches"][kernel] += n2[kernel]
         if parties * params.lwe_size == TAIL_RING:  # the tail on a ring above 4,096
             from torus_fhe_tpu_torch.apps import mk_knn
 
@@ -1030,20 +1203,17 @@ def wide_route(dev, rng) -> dict:
                     "gates": 2, "batch": B}
     if out.a.shape != (B, parties, params.lwe_size) or out.a.dtype != torch.int32:
         raise AssertionError(f"{name}: gate output {out.a.dtype} {tuple(out.a.shape)}")
-    phase = mk.mk_lwe_phase(out, keys)
-    wrong = int((phase > 0).ne(msgs).sum()) + int(mk.mk_decrypt(keys, nand).ne(~(msgs & ys)).sum())
+    wrong = int(mk.mk_decrypt(keys, out).ne(msgs).sum()) + \
+        int(mk.mk_decrypt(keys, nand).ne(~(msgs & ys)).sum())
     if wrong:
         raise AssertionError(f"{name}: {wrong} wrong decryptions")
-    ideal = torch.where(msgs, 1 << 29, -(1 << 29)).to(torch.int32)
-    noise = ((phase - ideal).double() / 2.0**32).std().item()
-    env = NOISE_ENVELOPE[name]
-    if not NOISE_BAND[0] <= noise / env <= NOISE_BAND[1]:
-        raise AssertionError(f"{name}: boot-noise std {noise:.5f} is {noise / env:.3f}x the "
-                             f"envelope {env}, outside {NOISE_BAND}")
     log(f"W2 {name}", f"fbstream key, B={B}: AND and NAND decrypt correctly (0 wrong of {2 * B}); "
-        f"blind_rotate 0x, blind_rotate_sel 0x, int8 products {got['int8_matmul']}; boot-noise "
-        f"std {noise:.5f} ({noise / env:.3f}x envelope {env}); AND {t_and:.3f} s = "
-        f"{B / t_and:.2f} gates/s, NAND {t_nand:.3f} s; peak memory {peak / 1e9:.2f} GB")
+        f"blind_rotate 0x, blind_rotate_sel 0x, int8 products {got['int8_matmul']}; AND "
+        f"{t_and:.3f} s = {B / t_and:.2f} gates/s, NAND {t_nand:.3f} s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    n2 = noise_3gen(name, sks, ck, gen, rng, dev)  # N2: the noise, through the report step
+    if n2["blind_rotate"] or n2["blind_rotate_sel"]:
+        raise AssertionError(f"{name} N2: the wide route launched a kernel: {n2}")
 
     # where a gate's time goes: the rotate (host against device), its parts, the keyswitch
     t = gates3gen.mk_gate_and_wb(ck, ct, ct_true)
@@ -1053,16 +1223,9 @@ def wide_route(dev, rng) -> dict:
     acc, t_enq, t_rot = enqueue_and_total(
         lambda: cuda_rotate.rotate_streamed(None, ck.bk_fb_sel, bara, *args, stepvec=sv))
     steps = geom.n
-    one_chunk = lambda: fblock.blind_rotate_streamed(acc, ck.bk_fb_sel[:64], bara[:, :64], *args)
-    _, c_enq, c_tot = enqueue_and_total(one_chunk)
-    busy_ms, top = device_busy(one_chunk)
     # at one gate the card has next to nothing to do: the chunk's wall time is the host's
-    one_gate = lambda: fblock.blind_rotate_streamed(acc[:1], ck.bk_fb_sel[:64], bara[:1, :64],
-                                                    *args)
-    one_gate()
-    host_s = min(sync_time(one_gate)[1] for _ in range(3))
-    nl = len(poly.digits_to_i8_rows(torch.zeros((1, 8), dtype=torch.int32), tg.log2_base))
-    rows, K, cols = nl * B * geom.nb, geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs
+    c_tot, c_enq, busy_ms, top, host_s = scan_split(ck.bk_fb_sel, bara, acc, args)
+    (rows, K, cols, nl), bound_ms = scan_shapes(B, geom, tg.log2_base)
     gy = torch.Generator(device=dev).manual_seed(SEED)
     dexp = torch.randint(-128, 128, (rows, K), generator=gy, dtype=torch.int8, device=dev)
     fmat_t = torch.randint(-128, 128, (cols, K), generator=gy, dtype=torch.int8, device=dev)
@@ -1071,8 +1234,6 @@ def wide_route(dev, rng) -> dict:
     exp_ms = event_ms(lambda: fblock.expand_kernel_chunk(ck.bk_fb_sel[:64], geom), 3)
     u = rlwe_extract_sample(RLweSample(acc))
     ks_ms = event_ms(lambda: boot3gen.mk_keyswitch(ck, LweSample(u.a, u.b)), 3)
-    macs = steps * rows * K * cols  # as multiplied: half of the digit matrix is zeros
-    bound_ms = 2 * macs / cuda_rotate.INT8_OPS_PER_S * 1e3
     busy = "not measured" if busy_ms is None else f"{busy_ms / 64 * 1e3:.1f} us"
     log(f"W2 {name} rotate", f"B={B}, {steps} steps, {nl} limb blocks stacked: one int8 product ({rows} x {K}) @ ({K} x {cols}) a step; rotate "
         f"{t_rot * 1e3:.1f} ms = {t_rot / steps * 1e6:.1f} us a step, host enqueue "
@@ -1194,25 +1355,31 @@ def scheme_phases(dev, rng) -> dict:
                                  f"{steps} steps x {parties + 3} + {parties} keyswitches")
         if out.a.shape != (B, parties, n) or out.a.dtype != torch.int32:
             raise AssertionError(f"{tag} {name}: gate output {out.a.dtype} {tuple(out.a.shape)}")
-        wrong, err_max, err_std, over = phase_error(out, keys, ~(x & y), PHASE_BOUND)
+        wrong = int(mk.mk_decrypt(keys, out).ne(~(x & y)).sum())
+        peak = torch.cuda.max_memory_allocated()
+        # N4: the noise, through the harness's report step on this key
+        rep = noise_scheme(f"N4 {name}", "ccs" if scheme is ccs else "kms", sks, ck, gen, rng, dev)
+        err_max, err_std = rep.boot_noise_max, rep.boot_noise_std
+        over = int((np.abs(rep.boot_noises) >= PHASE_BOUND).sum())
         if scheme is ccs:
             # the scheme's own noise puts 1/16 at ~2 std: the std is held to
-            # its prediction, the wrong count to what that std allows
+            # its prediction, the wrong counts to what that std allows
             pred = ccs_noise_std(params)
             allowed = allowed_wrong(B, pred * CCS_NOISE_BAND[1])
-            ok = wrong <= allowed and CCS_NOISE_BAND[0] <= err_std / pred <= CCS_NOISE_BAND[1]
+            ok = (max(wrong, rep.wrong_decryptions) <= allowed
+                  and CCS_NOISE_BAND[0] <= err_std / pred <= CCS_NOISE_BAND[1])
             gate = (f"boot-noise std {err_std:.5f} = {err_std / pred:.3f}x the predicted "
-                    f"{pred:.5f} (band {CCS_NOISE_BAND}), {wrong} wrong (at most {allowed})")
+                    f"{pred:.5f} (band {CCS_NOISE_BAND}), {wrong} and {rep.wrong_decryptions} "
+                    f"wrong (at most {allowed})")
         else:
-            ok = wrong == 0 and err_max < PHASE_BOUND
-            gate = f"{wrong} wrong, max |phase - ideal| under {PHASE_BOUND}"
-        peak = torch.cuda.max_memory_allocated()
+            ok = wrong == 0 and rep.wrong_decryptions == 0 and err_max < PHASE_BOUND
+            gate = f"{wrong} and {rep.wrong_decryptions} wrong, max |phase - ideal| under {PHASE_BOUND}"
         log(f"{tag} {name}", f"{parties} party keygens + cloud keygen {t_keygen:.2f} s; key on the "
             f"card {key_bytes(ck) / 1e6:.1f} MB; NAND B={B} (all four input pairs): {wrong} wrong "
-            f"of {B}, max |phase - ideal| {err_max:.5f}, {over} at or over {PHASE_BOUND}, "
-            f"boot-noise std {err_std:.5f}; {t_cold:.3f} s; blind_rotate 0x, blind_rotate_sel 0x, "
-            f"int8 products {got['int8_matmul']}; peak memory {peak / 1e9:.2f} GB; held to: "
-            f"{gate}: {'met' if ok else 'NOT MET'}")
+            f"of {B}; N4 ({rep.trials} NAND(m, 1)): max |phase - ideal| {err_max:.5f}, {over} at "
+            f"or over {PHASE_BOUND}, boot-noise std {err_std:.5f}; {t_cold:.3f} s; blind_rotate "
+            f"0x, blind_rotate_sel 0x, int8 products {got['int8_matmul']}; peak memory "
+            f"{peak / 1e9:.2f} GB; held to: {gate}: {'met' if ok else 'NOT MET'}")
         if not ok:
             raise AssertionError(f"{tag} {name}: {gate} not met")
         t_warm = sync_time(lambda: scheme.mk_gate_nand(ck, cx, cy))[1]
@@ -1221,8 +1388,10 @@ def scheme_phases(dev, rng) -> dict:
         rec = {"route": "torch ops (F-block products, 32-bit)" if scheme is ccs else
                "torch ops (64-bit F-block scan, Toeplitz products)", **got, "gates": 1, "batch": B,
                "keygen_s": t_keygen, "key_bytes": key_bytes(ck), "nand_s": [t_cold, t_warm],
-               "wrong": wrong, "phase_err_max": err_max, "over_bound": over,
-               "boot_noise_std": err_std}
+               "wrong": wrong, "report_wrong": rep.wrong_decryptions, "phase_err_max": err_max,
+               "over_bound": over, "boot_noise_std": err_std,
+               "rounded_phase_gt_quarter_lt_zero": [rep.wrong_phase_gt_quarter,
+                                                    rep.wrong_phase_lt_zero]}
         if scheme is ccs:
             rec.update(ccs_split(ck, temp, B, tag, name))
         else:
@@ -1305,6 +1474,21 @@ def scheme_phases(dev, rng) -> dict:
     del kept
     torch.cuda.empty_cache()
     return routes
+
+
+def noise_scheme(tag: str, scheme: str, sks, ck, gen, rng, dev):
+    """N4: the CCS or KMS report step on a key held here, N4_TRIALS
+    messages; no kernel may launch. Prints the report's JSON on a line of
+    its own; the caller holds it to its scheme's bounds."""
+    rep, counts, wall = mk_report(sks, ck, scheme, N4_TRIALS, gen, rng, dev)
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: a kernel launched: {counts}")
+    log(tag, f"{rep.trials} trials in {wall:.2f} s: {rep.wrong_decryptions} wrong; boot-noise std "
+        f"{rep.boot_noise_std:.5f}, max {rep.boot_noise_max:.5f}; rounded phase > 1/4: "
+        f"{rep.wrong_phase_gt_quarter}, < 0: {rep.wrong_phase_lt_zero}; classes of the wrong: "
+        f"{rep.wrong_classes}")
+    print(json.dumps({"noise": tag, **json.loads(rep.to_json())}), flush=True)
+    return rep
 
 
 def ccs_split(ck, temp, B: int, tag: str, name: str) -> dict:
@@ -1555,6 +1739,8 @@ def mk_circuits(name: str, params, sks, ck, kernel: str, rng) -> None:
     from torus_fhe_tpu_torch.apps import cnn, knn, mk_knn
     from torus_fhe_tpu_torch.apps import volume_matching as vm
     from torus_fhe_tpu_torch.mk import gates3gen as g3
+    from torus_fhe_tpu_torch.mk import keys3gen
+    from torus_fhe_tpu_torch.ops import cuda_rotate
 
     keys = [sk.lwe for sk in sks]
     gen = torch.Generator().manual_seed(SEED + 100 + ck.parties)
@@ -1562,6 +1748,11 @@ def mk_circuits(name: str, params, sks, ck, kernel: str, rng) -> None:
     dec = lambda x, w: mk.mk_int_decrypt(keys, x, w) % (1 << w)
     tag = f"{ck.parties} parties"
     spec = M1_SETS[name]
+    key = ck.bk_fb if ck.bk_fb is not None else ck.bk_fb_sel
+    geom = keys3gen.mk_fb_geometry(params, ck.parties)
+    log(f"M1 bounds, {tag}", ", ".join(  # from shapes, for the batches of the adder and multiplier
+        f"B={B}: {cuda_rotate.rotate_bound_ms(B, geom, key.numel())[0]:.2f} ms a launch"
+        for B in sorted({spec["add"][1], spec["mul"][1]})))
 
     w, B = spec["add"]
     a, b = rng.integers(0, 2**w, B), rng.integers(0, 2**w, B)
@@ -1663,15 +1854,11 @@ def counted(fn, want=None):
     with the kernels' counts at 0 just before it and read just after. The
     compact-key kernel must not launch; ``want``, where given, is the exact
     count of blind_rotate launches."""
-    from torus_fhe_tpu_torch.ops import cuda_rotate
-
-    torch.cuda.synchronize()
-    reset_launches(cuda_rotate)
-    out, wall = sync_time(fn)
-    n = cuda_rotate.blind_rotate_cuda.launches
-    if cuda_rotate.blind_rotate_sel_cuda.launches or (want is not None and n != want):
+    out, counts, wall = launched(fn)
+    n = counts["blind_rotate"]
+    if counts["blind_rotate_sel"] or (want is not None and n != want):
         raise AssertionError(f"launches: blind_rotate {n} (want {want}), blind_rotate_sel "
-                             f"{cuda_rotate.blind_rotate_sel_cuda.launches} (want 0)")
+                             f"{counts['blind_rotate_sel']} (want 0)")
     return out, n, wall
 
 
@@ -1958,6 +2145,157 @@ def cli_phase(rng) -> int:
     log("D4 cli", f"{CLI_PARAMS}: " + ", ".join(f"{c} {s:.2f} s" for c, s in times.items())
         + f"; blind_rotate launched {launches}x; --help as a subprocess")
     return launches
+
+
+def noise_single_key(dev, rng, routes) -> dict:
+    """N1: utils/noise.measure_single_key at tfhe_128_tpu_fast, N1_TRIALS
+    trials, with its own keygen: 0 wrong, boot-noise std within NOISE_BAND
+    of N1_ENVELOPE, both rounded-phase classes 0, and 2 launches of
+    blind_rotate.cu (the gate and the bootstrapped True)."""
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.utils import noise
+
+    rep, counts, wall = launched(lambda: noise.measure_single_key(
+        torch.Generator().manual_seed(SEED + 500), P.tfhe_parameters_128_tpu_fast(),
+        trials=N1_TRIALS, device=dev))
+    log("N1 measure_single_key", f"tfhe_128_tpu_fast, {N1_TRIALS} trials: {wall:.2f} s with its "
+        f"keygen; launches {counts}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if counts != {"blind_rotate": 2, "blind_rotate_sel": 0}:
+        raise AssertionError(f"N1: launches {counts}, want 2 of blind_rotate")
+    check_report("N1 tfhe_128_tpu_fast", rep, N1_ENVELOPE, classes=True)
+    routes["tfhe_128_tpu_fast noise"] = {"trials": rep.trials, "wall_s": wall,
+                                         "gate_s": rep.bootstrap_wall_s, **counts}
+    torch.cuda.empty_cache()
+    return counts
+
+
+def noise_3gen_public(dev, rng, routes) -> dict:
+    """N2 through the public entry: utils/noise.measure_multikey at
+    mk_2party_3gen with its own keygen, N2_TRIALS messages, in the default
+    form (the expanded key): 3 launches of its kernel (blind_rotate.cu),
+    and the report held as N2 holds the one on multikey()'s key."""
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.utils import noise
+
+    from torus_fhe_tpu_torch.mk import keys3gen
+
+    name, params = "mk_2party_3gen", P.PARAMETER_REGISTRY["mk_2party_3gen"]()
+    rep, counts, wall = launched(lambda: noise.measure_multikey(
+        torch.Generator().manual_seed(SEED + 501), params, 2, trials=N2_TRIALS[name], device=dev))
+    log(f"N2 measure_multikey {name}", f"{wall:.2f} s with its keygen; launches {counts}")
+    kernel = "blind_rotate" if keys3gen.default_forms(params, 2) == ("fblock",) else \
+        "blind_rotate_sel"
+    if counts[kernel] != 3 or sum(counts.values()) != 3:
+        raise AssertionError(f"N2 measure_multikey: launches {counts}, want 3 of {kernel}")
+    check_report(f"N2 measure_multikey {name}", rep, NOISE_ENVELOPE[name],
+                 pre_ks_jax=PRE_KS_JAX[name])
+    torch.cuda.empty_cache()
+    return counts
+
+
+def exact_route(dev, rng, routes) -> dict:
+    """N3: utils/noise.measure_multikey at N3_SET with fast_form=False, the
+    exact 64-bit route at full width (the compact lines of the raw samples,
+    the torch-op scan; JAX's conv form), with its own keygen and the cloud
+    key through ``cache_path``: 0 wrong, boot-noise std within NOISE_BAND of
+    N3_ENVELOPE, no kernel launch. Then the key loaded from that file times
+    a 64-step chunk of its rotate, host against device, beside the bound
+    from shapes. Adds a ``routes`` record."""
+    import os
+    import tempfile
+
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.mk import keys3gen
+    from torus_fhe_tpu_torch.ops import poly
+    from torus_fhe_tpu_torch.utils import noise, serialize
+
+    params, parties, B = P.PARAMETER_REGISTRY[N3_SET](), 2, N3_TRIALS
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "exact.key")
+        poly.int8_matmul.calls = 0
+        rep, counts, wall = launched(lambda: noise.measure_multikey(
+            torch.Generator().manual_seed(SEED + 502), params, parties, trials=B,
+            fast_form=False, cache_path=path, device=dev))
+        products = poly.int8_matmul.calls
+        size = os.path.getsize(path)
+        ck = serialize.load_mk_cloud_key(path, device=dev)
+    if any(counts.values()):
+        raise AssertionError(f"N3: the exact route launched a kernel: {counts}")
+    if not ck.exact or ck.bk_fb is not None:
+        raise AssertionError("N3: the key file did not keep the exact form")
+    check_report(f"N3 {N3_SET} exact", rep, N3_ENVELOPE)
+    geom = keys3gen.mk_fb64_geometry(params, parties)
+    tg = P.TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 64)
+    args = (geom, tg.decomp_length, tg.log2_base, tg.offset)
+    N = params.rlwe_polynomial_degree
+    bara = torch.from_numpy(rng.integers(0, 2 * N, (B, geom.n)).astype(np.int32)).to(dev)
+    acc = torch.from_numpy(rand_torus(rng, (B, 2, N), 64)).to(dev)
+    c_tot, c_enq, busy_ms, top, host_s = scan_split(ck.bk_fb_sel, bara, acc, args)
+    (rows, K, cols, nl), bound_ms = scan_shapes(B, geom, tg.log2_base)
+    gate_step_ms = rep.bootstrap_wall_s / geom.n * 1e3
+    device_step_ms = None if busy_ms is None else busy_ms / 64
+    routes[f"{N3_SET} exact"] = {
+        "route": "torch ops (fblock.blind_rotate_streamed, 64-bit, raw samples' lines)", **counts,
+        "int8_matmul": products, "trials": B, "wall_s": wall, "gate_s": rep.bootstrap_wall_s,
+        "gate_step_ms": gate_step_ms, "chunk_step_ms": c_tot / 64 * 1e3,
+        "host_enqueue_step_ms": c_enq / 64 * 1e3, "host_step_ms_b1": host_s / 64 * 1e3,
+        "device_step_ms": device_step_ms, "bound_ms": bound_ms, "key_file_bytes": size}
+    log(f"N3 {N3_SET} exact", f"measure_multikey(fast_form=False) {wall:.2f} s with keygen and the "
+        f"key file ({size / 1e6:.1f} MB); launches {counts}, int8 products {products}; the AND "
+        f"B={B} {rep.bootstrap_wall_s:.3f} s = {gate_step_ms:.3f} ms a step over {geom.n} steps; "
+        f"a 64-step chunk {c_tot / 64 * 1e3:.3f} ms a step (host enqueue {c_enq / 64 * 1e3:.3f}), "
+        f"at B=1 {host_s / 64 * 1e3:.3f} ms a step (the host's share), kernels on the card "
+        f"{'not measured' if device_step_ms is None else f'{device_step_ms:.3f} ms'} a step "
+        f"(top: {'; '.join(top) if top else 'none'}); one int8 product ({rows} x {K}) @ ({K} x "
+        f"{cols}) a step, {nl} limb blocks; bound from shapes {bound_ms:.1f} ms a rotate as "
+        f"multiplied")
+    del ck, bara, acc
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mk_knn_phase(dev, rng, routes) -> dict:
+    """N6: apps/mk_knn.run_mk_pipeline at N6_KNN's set (compact key,
+    blind_rotate_sel.cu), its own keygen, on a synthetic cardio-format CSV
+    in a temporary directory: every prediction equals plaintext_oracle, and
+    the threshold tail on the ring of parties x n decodes each prediction.
+    Runs as a circuit phase: its launches, rows rotated, wall time and the
+    kernels' share go into the ``circuits`` record (and so into the kernels'
+    launches)."""
+    import os
+    import tempfile
+
+    from torus_fhe_tpu_torch.apps import mk_knn
+    from torus_fhe_tpu_torch.core import params as P
+
+    name, parties, rows, tests, width, k = N6_KNN
+    params = P.PARAMETER_REGISTRY[name]()
+    header = ("id,age_days,age_year,gender,height,weight,ap_hi,ap_lo,cholesterol,gluc,smoke,"
+              "alco,active,cardio")
+    data = np.concatenate([np.arange(rows + tests)[:, None],
+                           rng.integers(0, 4, (rows + tests, 5)),
+                           rng.integers(0, 32, (rows + tests, 2)),  # ap_hi, ap_lo: the features
+                           rng.integers(0, 4, (rows + tests, 5)),
+                           rng.integers(0, 2, (rows + tests, 1))], axis=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cardio.csv")
+        np.savetxt(path, data, fmt="%d", delimiter=",", header=header, comments="")
+        res = circuit_phase(f"N6 run_mk_pipeline {name} (with keygen)", "blind_rotate_sel",
+                            lambda: mk_knn.run_mk_pipeline(
+                                torch.Generator().manual_seed(SEED + 503), params, parties, path,
+                                k=k, width=width, train_rows=rows, test_rows=tests,
+                                feature_cols=[6, 7], device=dev))
+    expect(f"N6 {name} predictions", res["predictions"], res["oracle"])
+    if not res["matches_oracle"] or len(res["predictions"]) != tests:
+        raise AssertionError(f"N6: {res}")
+    expect(f"N6 {name} threshold tail (ring {parties * params.lwe_size})",
+           [[r["bit"] for r in t] for t in res["threshold_tail"]],
+           [[p] * len(t) for p, t in zip(res["predictions"], res["threshold_tail"])])
+    log(f"N6 {name}", f"{rows} train x {tests} test rows, width {width}, k={k}: predictions "
+        f"{res['predictions']} == oracle {res['oracle']}, labels {res['labels']}; tails on ring "
+        f"{parties * params.lwe_size}")
+    torch.cuda.empty_cache()
+    return {"blind_rotate": 0, "blind_rotate_sel": 0}  # counted in the circuits record
 
 
 if __name__ == "__main__":

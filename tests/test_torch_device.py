@@ -14,6 +14,7 @@ from torus_fhe_tpu_torch.core.device import resolve_device
 from torus_fhe_tpu_torch.lwe import lwe_keygen
 from torus_fhe_tpu_torch.mk import gates3gen
 from torus_fhe_tpu_torch.rlwe import rlwe_keygen
+from torus_fhe_tpu_torch.utils import noise
 
 PARAMS = P.test_parameters(n=8, N=64)
 PARAMS3 = P.test_parameters_3gen(parties=2, n=8, N=64)
@@ -102,3 +103,23 @@ def test_loaders_of_whole_keys_and_inner_helpers(monkeypatch):
     # an inner helper: None is torch's default device, by design
     assert lwe_keygen(_gen(), PARAMS.lwe).key.device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+NOISE_ENTRIES = {
+    "measure_single_key": lambda: noise.measure_single_key(_gen(), PARAMS, trials=4),
+    "measure_multikey_3gen": lambda: noise.measure_multikey(_gen(), PARAMS3, 2, trials=4),
+    "measure_multikey_ccs": lambda: noise.measure_multikey(
+        _gen(), P.test_parameters_ccs(parties=2, n=8, N=64), 2, trials=4, scheme="ccs"),
+    "measure_multikey_kms": lambda: noise.measure_multikey(
+        _gen(), P.test_parameters_kms(parties=2, n=8, N=64), 2, trials=4, scheme="kms"),
+}
+
+
+@pytest.mark.parametrize("name", list(NOISE_ENTRIES))
+def test_noise_harness_defaults_to_the_card(name, monkeypatch):
+    """The harness's entries take device=None as the card: without one they
+    raise before any keygen and name device="cpu" (their CPU runs are in
+    tests/test_torch_noise.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        NOISE_ENTRIES[name]()

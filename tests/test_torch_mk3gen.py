@@ -358,7 +358,10 @@ def test_default_forms_and_unported_routes():
     with pytest.raises(ValueError, match="fbstream"):  # a wide key without its lines
         boot3gen._fast_rotate_extract(fake, MU64, torch.zeros((1, 32), dtype=torch.int32),
                                       torch.zeros(1, dtype=torch.int32), 1)
+    # "conv" is the exact route (the raw samples' lines), asked for alone at a hi-word set
+    one = [mk.mk_party_keygen(g, PARAMS, device="cpu")]
+    exact = mk.mk_cloud_keygen(g, one, PARAMS, device="cpu", forms=("conv",))
+    assert exact.exact and exact.bk_fb is None and exact.bk_fb_sel.shape[-1] == 16
     with pytest.raises(ValueError, match="conv"):
-        mk.mk_cloud_keygen(g, [mk.mk_party_keygen(g, PARAMS, device="cpu")], PARAMS,
-                           device="cpu", forms=("conv",))
+        mk.mk_cloud_keygen(g, one, PARAMS, device="cpu", forms=("conv", "fbstream"))
     assert boot3gen.hi_word(MU64) == MU32 and boot3gen.hi_word(MU32) == MU32

@@ -73,3 +73,17 @@ def t64_to_t32(x: torch.Tensor) -> torch.Tensor:
     rem_nonzero = (x & 0xFFFFFFFF) != 0
     q = q + ((x < 0) & rem_nonzero).to(torch.int64)
     return q.to(torch.int32)
+
+
+def noise_calc(m_torus, d_torus) -> torch.Tensor:
+    """Signed torus distance d - m between an expected phase m and a
+    decrypted phase d, as float32 wrapped into [-0.5, 0.5]. The width comes
+    from m's dtype; both are converted to float32 before the subtraction,
+    as the JAX package does, so equal words give equal floats."""
+    m = torch.as_tensor(m_torus)
+    scale = float(np.float32(2.0 ** torus_bits(m.dtype)))
+    m = m.to(torch.float32) / scale
+    d = torch.as_tensor(d_torus, device=m.device).to(torch.float32) / scale
+    diff = d - m
+    diff = torch.where(diff < -0.5, diff + 1.0, diff)
+    return torch.where(diff > 0.5, diff - 1.0, diff)

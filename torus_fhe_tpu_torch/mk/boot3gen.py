@@ -8,10 +8,11 @@ sample whatever the party count. Over the hi-word rounded key that chain is
 a 32-bit one: the expanded key (``bk_fb``) runs blind_rotate.cu, the compact
 key (``bk_fb_sel``) blind_rotate_sel.cu, and CPU keys their plain versions
 (ops/cuda_rotate ``rotate`` / ``rotate_streamed``). At the wide-digit sets
-(16 parties and up) the key is not rounded: the chain runs on the 64-bit
+(16 parties and up), and over a ``"conv"`` key at any set (the exact route,
+``MKCloudKey.exact``), the key is not rounded: the chain runs on the 64-bit
 torus over the raw samples' lines, as the torch-op scan that
-``rotate_streamed`` picks from the parameters, and the extract truncates the
-int64 accumulator to the 32-bit LWE sample the keyswitch reads.
+``rotate_streamed`` picks from the 64-bit geometry, and the extract truncates
+the int64 accumulator to the 32-bit LWE sample the keyswitch reads.
 
 The multikey keyswitch applies every party's table to the same extracted
 mask: one one-hot digit matrix against the party-concatenated tables, one
@@ -55,15 +56,21 @@ def mk_bootstrap_wo_keyswitch(ck: MKCloudKey, mu: int, x: MKLweSample) -> LweSam
 
 def _fast_rotate_extract(ck: MKCloudKey, mu: int, bara: torch.Tensor, barb: torch.Tensor,
                          B: int) -> LweSample:
-    """Blind rotate over the F-block key, stepvec init, and extract: the
-    32-bit hi-word chain (the expanded form when the key has it, else the
-    compact one) at the byte-digit sets, the exact 64-bit chain over the
-    compact lines at the wide-digit sets, whose test vector is the full
-    64-bit ``mu``. bara: (B, parties*n) int32; barb: (B,) int32."""
+    """Blind rotate over the F-block key, stepvec init, and extract. The key
+    picks the route: a key with exact lines (``ck.exact``: a wide-digit set,
+    or the ``"conv"`` form) runs the exact 64-bit chain over the compact
+    lines of its raw samples, with the full 64-bit ``mu``, on the wide route
+    (no kernel launch, as the JAX package's conv scan runs outside Pallas);
+    a rounded key runs the 32-bit hi-word chain (the expanded form when the
+    key has it, else the compact one). bara: (B, parties*n) int32; barb:
+    (B,) int32."""
     params = ck.params
-    if not mk_fb_supported(params):
+    if not ck.exact and not mk_fb_supported(params):
+        raise ValueError("a wide-digit cloud key holds the exact lines of its raw samples "
+                         "(the fbstream form, exact=True)")
+    if ck.exact:
         if ck.bk_fb_sel is None:
-            raise ValueError("a wide-digit cloud key needs the fbstream form")
+            raise ValueError("an exact cloud key needs its lines (the fbstream or conv form)")
         tg64 = TGswParams(params.gsw_decomp_length, params.gsw_log2_base, 64)
         acc = rotate_streamed(None, ck.bk_fb_sel, bara, mk_fb64_geometry(params, ck.parties),
                               tg64.decomp_length, tg64.log2_base, tg64.offset,

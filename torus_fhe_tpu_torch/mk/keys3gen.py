@@ -21,10 +21,14 @@ and up: l = 1 or 2, Bg = 2^18 to 2^27) that rounding is noise-unsafe: every
 product multiplies the +-2^-33 rounding of a key entry by a digit of up to
 Bg/2. They take ``fbstream`` only, as the compact lines of the RAW 64-bit
 samples under ``mk_fb64_geometry`` (16 limb columns), and their rotate is the
-exact 64-bit torch-op scan (ops/fblock.blind_rotate_streamed). Keygen
-products run on the host in exact numpy (ops/hostmath) at 64 bits; the
-finished keys move to ``device`` (None: the card,
-core/device.resolve_device; ``"cpu"``: the CPU).
+exact 64-bit torch-op scan (ops/fblock.blind_rotate_streamed). The same
+exact key serves a hi-word set when it is asked for by name, ``"conv"``
+(the JAX package's exact form): the compact lines of the raw 64-bit
+samples, and the exact chain on the same scan, which the noise harness
+(utils/noise.py, ``fast_form=False``) measures. Keygen products run on the
+host in exact numpy (ops/hostmath) at 64 bits; the finished keys move to
+``device`` (None: the card, core/device.resolve_device; ``"cpu"``: the
+CPU).
 """
 
 from __future__ import annotations
@@ -136,7 +140,10 @@ class MKCloudKey:
     holds the lines of the raw 64-bit samples instead, in ``build_sel``'s
     layout (parties*n, R, 2N, 16) on every device: no kernel reads them, and
     it is the layout the scan's expansion gathers from, so the card holds
-    the key once and turns nothing back. ``bk_samples``: the raw 64-bit
+    the key once and turns nothing back; a ``"conv"`` key at a hi-word set
+    holds the same raw lines. ``exact``: the lines are those of the raw
+    samples (a wide-digit set, or the ``"conv"`` form), so the rotate runs the
+    exact 64-bit chain and launches no kernel. ``bk_samples``: the raw 64-bit
     TGSW samples (parties*n, l, 2, 2, N) on the host, with ``keep_samples``.
     ``ks_mat``: (K, parties*(n+1)*4) int8 limb tables, zero columns up to a
     multiple of 8 (torch._int_mm).
@@ -148,6 +155,7 @@ class MKCloudKey:
     bk_fb: torch.Tensor | None = None
     bk_samples: torch.Tensor | None = None
     bk_fb_sel: torch.Tensor | None = None
+    exact: bool = False
 
 
 def mk_fb_supported(params: SchemeParams3Gen) -> bool:
@@ -191,7 +199,8 @@ def hi_round_samples(samples: np.ndarray) -> np.ndarray:
 def default_forms(params: SchemeParams3Gen, parties: int) -> tuple:
     """The fast form the JAX package picks (apps/mk_knn.py): the expanded
     key while it is at most 10 GiB, else the compact one; the compact one
-    at every wide-digit set."""
+    at every wide-digit set. Never ``"conv"``: the exact route is taken by
+    name only."""
     if not mk_fb_stream_supported(params):
         raise ValueError("3gen keys need a 64-bit ring torus")
     if not mk_fb_supported(params):
@@ -216,14 +225,17 @@ def mk_party_keygen(generator: torch.Generator, params: SchemeParams3Gen,
 
 
 def _check_forms(params: SchemeParams3Gen, forms) -> None:
-    if not forms or set(forms) - {"fblock", "fbstream"}:
-        raise ValueError(f"forms {forms}: the port builds 'fblock' and 'fbstream' "
-                         "(the conv backend is not ported)")
+    if not forms or set(forms) - {"fblock", "fbstream", "conv"}:
+        raise ValueError(f"forms {forms}: the port builds 'fblock', 'fbstream' and 'conv' "
+                         "(the exact lines of the raw samples)")
     if not mk_fb_stream_supported(params):
         raise ValueError("3gen keys need a 64-bit ring torus")
     if "fblock" in forms and not mk_fb_supported(params):
         raise ValueError("the fblock form needs l*log2(Bg) <= 31 and Bg <= 2^8: a wide-digit "
                          "set takes forms=('fbstream',)")
+    if "conv" in forms and len(forms) > 1 and mk_fb_supported(params):
+        raise ValueError(f"forms {forms}: at a hi-word set the exact 'conv' lines and the "
+                         "rounded fast forms are separate keys; ask for one of them")
 
 
 def cloud_key_from_samples(params: SchemeParams3Gen, samples: np.ndarray,
@@ -232,12 +244,14 @@ def cloud_key_from_samples(params: SchemeParams3Gen, samples: np.ndarray,
     """Assemble the cloud key from the raw 64-bit samples (parties*n, l, 2,
     2, N) and the party-concatenated keyswitch tables (K, parties*(n+1)*4)
     int8: build ``forms`` and pad the tables, on ``device``. A hi-word set
-    is rounded to the hi word first; a wide-digit set keeps the raw 64-bit
-    samples' lines under ``mk_fb64_geometry``."""
+    is rounded to the hi word first, unless ``forms`` is ``("conv",)``; a
+    wide-digit set, and the conv form, keep the raw 64-bit samples' lines
+    under ``mk_fb64_geometry``."""
     _check_forms(params, forms)
     device = resolve_device(device)
     fb = sel = None
-    if mk_fb_supported(params):
+    exact = "conv" in forms or not mk_fb_supported(params)
+    if not exact:
         geom = mk_fb_geometry(params, parties)
         hi = hi_round_samples(samples)
         if "fblock" in forms:
@@ -249,7 +263,7 @@ def cloud_key_from_samples(params: SchemeParams3Gen, samples: np.ndarray,
         sel = torch.from_numpy(lines).to(device)
     return MKCloudKey(pad_table(ks_mat).to(device), parties, params, bk_fb=fb,
                       bk_samples=torch.from_numpy(samples) if keep_samples else None,
-                      bk_fb_sel=sel)
+                      bk_fb_sel=sel, exact=exact)
 
 
 def mk_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[MKSecretKey],
@@ -260,9 +274,9 @@ def mk_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[MKSecretKe
 
     ``forms``: "fblock" builds the expanded key, "fbstream" the compact
     lines, on ``device`` (``default_forms`` picks one by size; a wide-digit
-    set takes "fbstream" only). The XLA "conv" form of the JAX package is
-    not ported. Sampling and the exact
-    products run on the host."""
+    set takes "fbstream" only); "conv", the JAX package's exact form, the
+    compact lines of the raw 64-bit samples, whose rotate is the exact
+    64-bit chain. Sampling and the exact products run on the host."""
     parties = len(secret_keys)
     if parties > params.max_parties:
         raise ValueError(f"{parties} parties, the set serves {params.max_parties}")

@@ -33,6 +33,7 @@ if not any(os.path.isdir(os.path.join(p, "torus_fhe_tpu_torch")) for p in sys.pa
 
 from torus_fhe_tpu_torch import mk  # noqa: E402
 from torus_fhe_tpu_torch.core import params as P  # noqa: E402
+from torus_fhe_tpu_torch.core.torus import noise_calc  # noqa: E402
 from torus_fhe_tpu_torch.mk import ccs, kms  # noqa: E402
 
 
@@ -77,7 +78,7 @@ def phase_error(out: mk.MKLweSample, keys, want: torch.Tensor, bound: float = 1 
     phase = mk.mk_lwe_phase(out, keys)
     wrong = int((phase > 0).ne(want).sum())
     ideal = torch.where(want, ccs.MU, -ccs.MU).to(torch.int32)
-    err = (phase - ideal).double() / 2.0**32  # int32 wrap: the short way round
+    err = noise_calc(ideal, phase).double()  # the short way round the torus
     return wrong, err.abs().max().item(), err.std().item(), int((err.abs() >= bound).sum())
 
 

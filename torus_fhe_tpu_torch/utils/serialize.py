@@ -11,9 +11,11 @@ left out).
 A cloud key is stored compact: the keyswitch table and the raw TGSW samples.
 The rotate's key form is rebuilt from the samples on load, on ``device``
 (None: the card, core/device.resolve_device; ``"cpu"``: the CPU). This
-package builds the F-block forms only: a file that recorded the JAX
-package's ``conv`` form loads as ``fblock``, and a legacy file that holds
-conv kernels and no samples cannot be loaded. The CCS and KMS cloud keys
+package builds the F-block forms only: a single-key file that recorded the
+JAX package's ``conv`` form loads as ``fblock``; a 3gen file whose only form
+is ``conv`` loads as the exact key of the raw samples' lines
+(mk/keys3gen.py), the exact chain JAX's conv scan runs; a legacy file that
+holds conv kernels and no samples cannot be loaded. The CCS and KMS cloud keys
 are stored by the JAX package's field names in its fb form; their files in
 the JAX conv form load too, the key lines rebuilt from the packed kernels.
 The keyswitch tables are
@@ -203,11 +205,17 @@ def load_lwe(path: str, device=None):
 def save_mk_cloud_key(path: str, ck) -> None:
     """The 3gen multikey cloud key, compact: the party-concatenated keyswitch
     tables and the raw 64-bit samples (keygen with ``keep_samples=True``),
-    from which any form is rebuilt on load."""
+    from which any form is rebuilt on load. The file records the key's
+    forms; an exact key at a hi-word set records ``conv``."""
+    from ..mk import keys3gen
+
     if ck.bk_samples is None:
         raise ValueError("the cloud key does not hold its raw samples: make it with "
                          "keep_samples=True")
-    forms = [f for f, v in (("fblock", ck.bk_fb), ("fbstream", ck.bk_fb_sel)) if v is not None]
+    if ck.exact and keys3gen.mk_fb_supported(ck.params):
+        forms = ["conv"]  # the exact lines of a hi-word set: the JAX package's exact form
+    else:
+        forms = [f for f, v in (("fblock", ck.bk_fb), ("fbstream", ck.bk_fb_sel)) if v is not None]
     cols = ck.parties * (ck.params.lwe_size + 1) * 4
     save_named(path, "mk_cloud_key", {"ks": ck.ks_mat[:, :cols], "samples": ck.bk_samples},
                params=ck.params, extra_meta={"parties": ck.parties, "forms": forms})
@@ -215,7 +223,9 @@ def save_mk_cloud_key(path: str, ck) -> None:
 
 def load_mk_cloud_key(path: str, forms=None, device=None):
     """Load a 3gen cloud key and build ``forms`` on ``device``: default the
-    file's forms without conv, else ``default_forms(params, parties)``. A
+    file's forms, without conv where the file has a fast form beside it; a
+    file whose only form is conv loads as the exact key (``("conv",)``); a
+    file without forms takes ``default_forms(params, parties)``. A
     wide-digit set (16 parties and up) takes ("fbstream",), the lines of the
     raw 64-bit samples."""
     from ..mk import keys3gen
@@ -223,8 +233,9 @@ def load_mk_cloud_key(path: str, forms=None, device=None):
     arrs, params, extra = _load_key_file(path, "mk_cloud_key")
     parties = int(extra["parties"])
     if forms is None:
-        forms = tuple(f for f in extra.get("forms", ()) if f != "conv") or \
-            keys3gen.default_forms(params, parties)
+        saved = tuple(extra.get("forms", ()))
+        forms = ("conv",) if saved == ("conv",) else \
+            tuple(f for f in saved if f != "conv") or keys3gen.default_forms(params, parties)
     return keys3gen.cloud_key_from_samples(
         params, arrs["samples"].astype(np.int64), torch.from_numpy(arrs["ks"].astype(np.int8)),
         parties, tuple(forms), resolve_device(device), keep_samples=True)
