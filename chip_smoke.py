@@ -27,6 +27,18 @@ read just after:
   count), so on one card every party is a stream of cuda:0. The pipelined
   accumulators must equal the single-call kernel over all steps and the
   plain version stage by stage, word for word;
+- P5, the mesh across processes (parallel/ after init_distributed), after
+  the sharded ops: the ranks of three groups spawned in turn on the one
+  card, each building only its own parties' key shards from the raw samples
+  the parent hands over: 8 gloo ranks run the mk_8party_3gen pipelined
+  rotate and NAND (compact key, B=256, M=4, one party a rank: 4 launches of
+  blind_rotate_sel a rank for each), the party-sharded keyswitch and the
+  threshold decryption; 2 gloo ranks the mk_2party_3gen pipelined NAND
+  (expanded key, 4.36 GB a rank, B=1024: 4 launches of blind_rotate a rank)
+  and the batch-sharded bootsAND (one launch a rank); 1 NCCL rank the
+  batch-sharded bootsAND. Every rank's words equal the one-process ones,
+  rank 0's NAND decrypts with 0 wrong, the rotate is timed beside the
+  one-process one, and a rank that raises or hangs fails the run;
 - the wide route, which no kernel takes and the JAX package runs outside
   Pallas too (ops/cuda_rotate.takes_kernel_route): W1, the torch-op scan on
   CUDA tensors == the same scan on CPU tensors at small 64-bit and wide-digit
@@ -226,6 +238,14 @@ N3_ENVELOPE = 0.01625  # measurements/log__mk_2party_3gen_trials-300_exact.log
 N4_TRIALS = 256  # the CCS and KMS report steps
 PROFILE_TRIES = 3  # N5: traces taken at most while the profiler drops the rotate kernel's record
 N6_KNN = ("mk_4party_3gen", 4, 5, 2, 8, 3)  # set, parties, train rows, test rows, width, k
+# P5: the mesh across processes on the one card: (backend, ranks, tasks) of
+# each group, spawned in turn; every rank runs on cuda:0, so the groups of
+# several ranks take gloo (NCCL refuses two ranks on one GPU)
+P5_GROUPS = (("gloo", 8, ("mk_8party_3gen", "keyswitch", "threshold")),
+             ("gloo", 2, ("mk_2party_3gen", "gate")),
+             ("nccl", 1, ("gate",)))
+P5_COLLECTIVE_S = 120  # the process group's timeout: a collective waits at most this long
+P5_JOIN_S = 300  # a group's ranks end within this, or the run fails
 
 
 def log(phase: str, msg: str) -> None:
@@ -652,11 +672,18 @@ def main() -> int:
         f"{MAIN_BATCH / statistics.mean(sh_s):.1f} gates/s (single device "
         f"{MAIN_BATCH / statistics.mean(gate_s):.1f})")
 
-    # S1: the fast set's key files, saved, loaded back onto the card, same gate words
+    # P5's inputs: the fast set's cloud key file and the single-device gate's words
     import os
     import tempfile
 
     from torus_fhe_tpu_torch.utils import serialize
+
+    p5_dir = tempfile.TemporaryDirectory(prefix="p5_")
+    serialize.save_cloud_key(os.path.join(p5_dir.name, "fast_cloud.key"), ck)
+    np.savez(os.path.join(p5_dir.name, "gate.npz"), x_a=cx.a.cpu(), x_b=cx.b.cpu(),
+             y_a=cy.a.cpu(), y_b=cy.b.cpu(), out_a=out.a.cpu(), out_b=out.b.cpu())
+
+    # S1: the fast set's key files, saved, loaded back onto the card, same gate words
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = [os.path.join(tmp, f) for f in ("secret.key", "cloud.key")]
@@ -688,8 +715,10 @@ def main() -> int:
 
     aux_launches += cli_phase(rng)
     mkr = multikey(dev, rng)
-    pipe = pipelines(rng, mkr.pop("kept"))
-    sharded_ops(rng)
+    pipe = pipelines(rng, mkr.pop("kept"), p5_dir.name)
+    sharded_ops(rng, p5_dir.name)
+    p5 = mesh_across_processes(p5_dir.name, pipe["pipe_ms"])
+    p5_dir.cleanup()
     routes = wide_route(dev, rng)
     routes.update(scheme_phases(dev, rng))
     for phase in (noise_single_key, noise_3gen_public, exact_route, mk_knn_phase):
@@ -706,7 +735,7 @@ def main() -> int:
          "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
          "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
          + pipe["launches"]["blind_rotate"] + circ["blind_rotate"] + aux_launches
-         + n_launches["blind_rotate"],
+         + n_launches["blind_rotate"] + p5["blind_rotate"],
          "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
@@ -714,7 +743,7 @@ def main() -> int:
          "source": "torus_fhe_tpu_torch/csrc/blind_rotate_sel.cu",
          "replaces": "torus_fhe_tpu/ops/fblock.py:339, torus_fhe_tpu/parallel/mk_pipeline.py:184",
          "launches": mkr["launches"]["blind_rotate_sel"] + pipe["launches"]["blind_rotate_sel"]
-         + circ["blind_rotate_sel"] + n_launches["blind_rotate_sel"],
+         + circ["blind_rotate_sel"] + n_launches["blind_rotate_sel"] + p5["blind_rotate_sel"],
          "max_abs_err": max(mkr["err"]["blind_rotate_sel"], pipe["err"]["blind_rotate_sel"]),
          "ms": mkr["ms"]["blind_rotate_sel"],
          "plain_ms": mkr["plain_ms"]["blind_rotate_sel"],
@@ -934,7 +963,7 @@ def multikey(dev, rng) -> dict:
     return res
 
 
-def pipelines(rng, kept: dict) -> dict:
+def pipelines(rng, kept: dict, p5_dir: str) -> dict:
     """The party-pipelined multikey rotate at full width, per set of
     PIPE_BATCH: P1, one party's stage, kernel == plain, explicit
     accumulator; P2 (8 parties, compact key) and P3 (2 parties, expanded
@@ -942,9 +971,13 @@ def pipelines(rng, kept: dict) -> dict:
     the plain version stage by stage, then the main path
     mk_bootstrap_pipelined -> NAND -> decrypt, with its launches counted,
     word-equal to the single-device mk_gate_nand. P4's multikey keyswitch:
-    party-sharded == single, at 8 parties. Returns the launch counts of the
-    main paths and the largest differences."""
+    party-sharded == single, at 8 parties. Writes P5's inputs to p5_dir:
+    per set the raw samples, the keyswitch tables, the party LWE keys, the
+    NAND batch, the pipelined accumulators and the NAND's words. Returns the
+    launch counts of the main paths, the largest differences and the
+    pipelined rotate's median ms per set."""
     import dataclasses
+    import os
 
     from torus_fhe_tpu_torch import mk
     from torus_fhe_tpu_torch.core import params as P
@@ -956,7 +989,7 @@ def pipelines(rng, kept: dict) -> dict:
     from torus_fhe_tpu_torch.rlwe import RLweSample, rlwe_extract_sample
 
     names = ("blind_rotate", "blind_rotate_sel")
-    res = {"launches": dict.fromkeys(names, 0), "err": dict.fromkeys(names, 0)}
+    res = {"launches": dict.fromkeys(names, 0), "err": dict.fromkeys(names, 0), "pipe_ms": {}}
     M = MICROBATCHES
 
     def check(tag, kernel, got, want):
@@ -1057,6 +1090,11 @@ def pipelines(rng, kept: dict) -> dict:
             f"(min {pipe_all[0]:.3f}, max {pipe_all[-1]:.3f} of {PIPE_REPS}) vs single call {single_ms:.3f} ms (ratio {pipe_ms / single_ms:.3f}), plain stages "
             f"{plain_s * 1e3:.1f} ms; pipelined NAND {t_nand:.3f} s = {B / t_nand:.1f} gates/s; "
             f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        res["pipe_ms"][name] = pipe_ms
+        p5_in = {"samples": ck.bk_samples.cpu(), "ks_mat": ck.ks_mat.cpu(),
+                 "keys": torch.stack([k.key for k in keys]).cpu(), "x": x.cpu(), "y": y.cpu(),
+                 "t_a": t.a.cpu(), "t_b": t.b.cpu(), "bara": bara.cpu(), "barb": barb.cpu(),
+                 "pipe": pipe.cpu(), "out_a": out.a.cpu(), "out_b": out.b.cpu()}
 
         if parties == 8:  # P4: the party-sharded keyswitch of the pipelined extract
             u = rlwe_extract_sample(RLweSample(pipe))
@@ -1067,6 +1105,8 @@ def pipelines(rng, kept: dict) -> dict:
                 raise AssertionError("mk_keyswitch_sharded != mk_keyswitch at 8 parties")
             log("P4 keyswitch", f"{name}: mk_keyswitch_sharded over {parties} slots == "
                 f"mk_keyswitch word for word (B={B})")
+            p5_in.update(u_a=u.a.cpu(), u_b=u.b.cpu(), ks_a=want.a.cpu(), ks_b=want.b.cpu())
+        np.savez(os.path.join(p5_dir, f"{name}.npz"), **p5_in)
         del shards, full_key, pipe, plain_out, out, ref, ck, sks, cx, cy, t, bara, barb
         torch.cuda.empty_cache()
     return res
@@ -1820,9 +1860,13 @@ def mk_circuits(name: str, params, sks, ck, kernel: str, rng) -> None:
            [[b] * 4 for b in bits])
 
 
-def sharded_ops(rng) -> None:
+def sharded_ops(rng, p5_dir: str) -> None:
     """P4: the party-sharded threshold decryption at N=1024, 3 of 5, against
-    the sequential pair, and the tiny-parameter mesh dry run, on 8 slots."""
+    the sequential pair, and the tiny-parameter mesh dry run, on 8 slots.
+    Writes the sample, the shares and the sequential pair's words to p5_dir
+    for P5."""
+    import os
+
     from torus_fhe_tpu_torch.core import params as P
     from torus_fhe_tpu_torch.parallel import dryrun, make_mesh, sharded
     from torus_fhe_tpu_torch.rlwe import rlwe_encrypt, rlwe_keygen
@@ -1844,9 +1888,249 @@ def sharded_ops(rng) -> None:
                              "or does not decode 0xBEEF")
     log("P4 threshold", "N=1024, 3 of 5, sd=0, 8 slots: sharded == sequential pair, decodes "
         "0xBEEF")
+    np.savez(os.path.join(p5_dir, "threshold.npz"), a=ct.a.cpu(), shares=np.asarray(sh),
+             signs=np.array([-1, 1, 1], np.int32), want=ref.cpu())
     dryrun.dryrun_multichip(mesh_devices(8))
     log("P4 dryrun", "dryrun_multichip on 8 slots: batch-sharded gate, sharded threshold "
         "decryption and the 4-party pipelined NAND pass")
+
+
+def mesh_across_processes(p5_dir: str, pipe_ms: dict) -> dict:
+    """P5: the mesh across processes (parallel/ after init_distributed), the
+    ranks of each P5_GROUPS group spawned on the one card. The 8-party
+    pipelined NAND (compact key) and the 2-party one (expanded key), one
+    party a rank, each rank building its own shard only: the accumulators
+    equal the one-process pipelined rotate on every rank, rank 0's NAND
+    decrypts with 0 wrong, and every rank launches its kernel M times for
+    the rotate and M times for the NAND. The party-sharded keyswitch and
+    threshold decryption on 8 ranks, and the batch-sharded bootsAND on 2
+    ranks and under NCCL on 1, word-equal to their one-process results (read
+    from p5_dir). A rank that raises or hangs fails the run. Returns each
+    kernel's launches over the NAND and gate paths of every rank."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    mps = os.path.exists(os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps"))
+    log("P5 device", f"compute mode {mode}; MPS {'on' if mps else 'off'} (no MPS: the ranks' "
+        "contexts time-slice the card)")
+    t0 = time.perf_counter()
+    launches = {"blind_rotate": 0, "blind_rotate_sel": 0}
+    for group, (backend, world, tasks) in enumerate(P5_GROUPS):
+        t = time.perf_counter()
+        ctx = mp.start_processes(p5_rank, args=(world, backend, p5_dir, group, tasks),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + P5_JOIN_S
+        try:
+            while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(f"P5 group {group} ({world} ranks, {backend}): not done "
+                                       f"in {P5_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        recs = []
+        for r in range(world):
+            with open(os.path.join(p5_dir, f"group{group}_rank{r}.json")) as fh:
+                recs.append(json.load(fh))
+        for task in tasks:
+            for r, rec in enumerate(recs):
+                log(f"P5 {task} rank {r}/{world} {backend}", json.dumps(
+                    {k: [round(x, 3) for x in v] if isinstance(v, list) else
+                     round(v, 3) if isinstance(v, float) else v for k, v in rec[task].items()}))
+            for rec in recs:
+                for path in ("nand", "gate"):
+                    for k, v in rec[task].get(f"launches_{path}", {}).items():
+                        launches[k] += v
+            if task in pipe_ms:
+                walls = [statistics.median(rec[task]["rotate_ms"]) for rec in recs]
+                log(f"P5 {task}", f"{world} ranks, one party each: pipelined rotate {max(walls):.3f} "
+                    f"ms (median of {PIPE_REPS}, slowest rank; ranks {min(walls):.3f}-"
+                    f"{max(walls):.3f}) vs {pipe_ms[task]:.3f} ms in one process (P2/P3), ratio "
+                    f"{max(walls) / pipe_ms[task]:.3f}; == one-process accumulators on every "
+                    f"rank; NAND 0 wrong")
+        log(f"P5 group {group}", f"{world} ranks ({backend}) {', '.join(tasks)}: "
+            f"{time.perf_counter() - t:.1f} s with spawn")
+    log("P5", f"{time.perf_counter() - t0:.1f} s; launches on the NAND and gate paths of every "
+        f"rank: {json.dumps(launches)}")
+    return launches
+
+
+def p5_rank(index: int, world: int, backend: str, p5_dir: str, group: int, tasks) -> None:
+    """One rank of a P5 group, spawned: joins the group through a file store
+    in p5_dir, runs ``tasks`` on its card and writes their records to
+    p5_dir/group<group>_rank<index>.json. Raises on the first failed check."""
+    import os
+
+    from torus_fhe_tpu_torch.parallel import mesh as pmesh
+
+    torch.set_num_threads(1)
+    pmesh.init_distributed(f"file://{os.path.join(p5_dir, f'store{group}')}", world, index,
+                           backend=backend, timeout=P5_COLLECTIVE_S)
+    try:
+        rec = {}
+        for task in tasks:
+            fn = {"keyswitch": p5_keyswitch, "threshold": p5_threshold, "gate": p5_gate}
+            rec[task] = fn[task](p5_dir) if task in fn else p5_pipeline(task, p5_dir)
+        with open(os.path.join(p5_dir, f"group{group}_rank{index}.json"), "w") as fh:
+            json.dump(rec, fh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def p5_pipeline(name: str, p5_dir: str) -> dict:
+    """A P5 rank's pipelined rotate and NAND at ``name``: its own party's
+    shard only, the rotate == the one-process accumulators, the NAND == the
+    one-process words (rank 0: 0 wrong), M launches of the form's kernel
+    each; the rotate timed PIPE_REPS times from a barrier."""
+    import os
+
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.lwe import LweKey
+    from torus_fhe_tpu_torch.mk import boot3gen, gates3gen, keys3gen
+    from torus_fhe_tpu_torch.mk.samples import MKLweSample
+    from torus_fhe_tpu_torch.parallel import make_mesh, mk_pipeline
+    from torus_fhe_tpu_torch.parallel.mesh import process_rank
+
+    d = np.load(os.path.join(p5_dir, f"{name}.npz"))
+    params = P.PARAMETER_REGISTRY[name]()
+    parties, M, me = params.max_parties, MICROBATCHES, process_rank()
+    expanded = PIPE_FORM[name] == "expanded"
+    kernel = "blind_rotate" if expanded else "blind_rotate_sel"
+    want_counts = {"blind_rotate": M if expanded else 0, "blind_rotate_sel": 0 if expanded else M}
+    mesh = make_mesh(n_batch=1, n_party=parties)
+    build = mk_pipeline.build_sharded_mk_fb if expanded else mk_pipeline.build_sharded_mk_sel
+    shards, t_build = sync_time(lambda: build(d["samples"], params, parties, mesh))
+    if [s is not None for s in shards] != [p == me for p in range(parties)]:
+        raise AssertionError(f"{name}: rank {me} holds the shards of parties "
+                             f"{[p for p, s in enumerate(shards) if s is not None]}")
+    dev = shards[me].device
+    bara, barb = torch.from_numpy(d["bara"]).to(dev), torch.from_numpy(d["barb"]).to(dev)
+    mu32 = boot3gen.hi_word(gates3gen.MU)
+
+    def rotate():
+        return mk_pipeline.mk_blind_rotate_pipelined(shards, bara, barb, mu32, params, parties,
+                                                     mesh, M)
+
+    acc, counts_rotate, _ = launched(rotate)
+    if counts_rotate != want_counts:
+        raise AssertionError(f"{name} rank {me}: rotate launches {counts_rotate}, want {want_counts}")
+    if not torch.equal(acc.cpu(), torch.from_numpy(d["pipe"])):
+        raise AssertionError(f"{name} rank {me}: pipelined accumulators != one-process ones")
+    ck = keys3gen.MKCloudKey(torch.from_numpy(d["ks_mat"]).to(dev), parties, params)
+    t = MKLweSample(torch.from_numpy(d["t_a"]).to(dev), torch.from_numpy(d["t_b"]).to(dev))
+    out, counts_nand, t_nand = launched(lambda: mk_pipeline.mk_bootstrap_pipelined(
+        ck, shards, gates3gen.MU, t, mesh, M))
+    if counts_nand != want_counts:
+        raise AssertionError(f"{name} rank {me}: NAND launches {counts_nand}, want {want_counts}")
+    if not (np.array_equal(out.a.cpu().numpy(), d["out_a"])
+            and np.array_equal(out.b.cpu().numpy(), d["out_b"])):
+        raise AssertionError(f"{name} rank {me}: pipelined NAND != the one-process words")
+    wrong = None
+    if me == 0:
+        keys = [LweKey(k.to(dev)) for k in torch.from_numpy(d["keys"])]
+        want = ~(torch.from_numpy(d["x"]) & torch.from_numpy(d["y"])).to(dev)
+        wrong = int(mk.mk_decrypt(keys, out).ne(want).sum())
+        if wrong:
+            raise AssertionError(f"{name}: pipelined NAND across ranks, {wrong} wrong")
+    walls = []
+    for _ in range(PIPE_REPS):
+        torch.distributed.barrier()
+        walls.append(sync_time(rotate)[1] * 1e3)
+    return {"form": PIPE_FORM[name], "B": int(barb.shape[0]), "M": M,
+            "shard_GB": shards[me].numel() / 1e9, "build_s": t_build,
+            "launches_rotate": counts_rotate, "launches_nand": counts_nand, "nand_s": t_nand,
+            "wrong": wrong, "rotate_ms": walls, "kernel": kernel,
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def p5_keyswitch(p5_dir: str) -> dict:
+    """A P5 rank's part of mk_keyswitch_sharded at 8 parties, one party
+    slot a rank: == mk_keyswitch's words (from P4) on every rank."""
+    import os
+
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.lwe import LweSample
+    from torus_fhe_tpu_torch.mk import keys3gen
+    from torus_fhe_tpu_torch.parallel import make_mesh, sharded
+    from torus_fhe_tpu_torch.parallel.mesh import rank_device
+
+    d = np.load(os.path.join(p5_dir, "mk_8party_3gen.npz"))
+    params = P.PARAMETER_REGISTRY["mk_8party_3gen"]()
+    dev = rank_device()
+    ck = keys3gen.MKCloudKey(torch.from_numpy(d["ks_mat"]).to(dev), 8, params)
+    mesh = make_mesh(n_batch=1, n_party=8)
+    tables = sharded.mk_ks_tables_sharded(ck, mesh)
+    u = LweSample(torch.from_numpy(d["u_a"]).to(dev), torch.from_numpy(d["u_b"]).to(dev))
+    got, wall = sync_time(lambda: sharded.mk_keyswitch_sharded(ck, tables, u, mesh))
+    if not (np.array_equal(got.a[..., :8, :].cpu().numpy(), d["ks_a"])
+            and np.array_equal(got.b.cpu().numpy(), d["ks_b"])):
+        raise AssertionError("mk_keyswitch_sharded across 8 ranks != mk_keyswitch")
+    return {"tables_held": sum(t is not None for t in tables), "s": wall}
+
+
+def p5_threshold(p5_dir: str) -> dict:
+    """A P5 rank's part of threshold_decrypt_sharded at N=1024, 3 of 5,
+    sd=0, one party slot a rank, each rank's generator seeded apart: the
+    sequential pair's words (from P4) on every rank, decoding 0xBEEF."""
+    import os
+
+    from torus_fhe_tpu_torch.parallel import make_mesh, sharded
+    from torus_fhe_tpu_torch.parallel.mesh import process_rank, rank_device
+    from torus_fhe_tpu_torch.threshold import decrypt as tdec
+
+    d = np.load(os.path.join(p5_dir, "threshold.npz"))
+    dev = rank_device()
+    mesh = make_mesh(n_batch=1, n_party=torch.distributed.get_world_size())
+    gen = torch.Generator().manual_seed(SEED + 100 + process_rank())
+    got, wall = sync_time(lambda: sharded.threshold_decrypt_sharded(
+        torch.from_numpy(d["a"]).to(dev), torch.from_numpy(d["shares"]), d["signs"], 0.0, gen,
+        mesh))
+    if not np.array_equal(got.cpu().numpy(), d["want"]) or tdec.decode_bits(got, n_bits=16) != 0xBEEF:
+        raise AssertionError("threshold_decrypt_sharded across ranks != the sequential pair or "
+                             "does not decode 0xBEEF")
+    return {"s": wall}
+
+
+def p5_gate(p5_dir: str) -> dict:
+    """A P5 rank's part of the batch-sharded bootsAND at tfhe_128_tpu_fast,
+    B=MAIN_BATCH, one batch slot a rank: the single-device gate's words on
+    every rank, one blind_rotate launch a rank."""
+    import os
+
+    from torus_fhe_tpu_torch.boot import gates
+    from torus_fhe_tpu_torch.lwe import LweSample
+    from torus_fhe_tpu_torch.parallel import make_mesh
+    from torus_fhe_tpu_torch.parallel import mesh as pmesh
+    from torus_fhe_tpu_torch.utils import serialize
+
+    dev = pmesh.rank_device()
+    ck = serialize.load_cloud_key(os.path.join(p5_dir, "fast_cloud.key"), device=dev)
+    d = np.load(os.path.join(p5_dir, "gate.npz"))
+    mesh = make_mesh(n_batch=torch.distributed.get_world_size())
+    x, y = (LweSample(torch.from_numpy(d[f"{v}_a"]).to(dev), torch.from_numpy(d[f"{v}_b"]).to(dev))
+            for v in "xy")
+    xs, ys = pmesh.shard_lwe_batch(x, mesh), pmesh.shard_lwe_batch(y, mesh)
+    keys = pmesh.replicate_cloud_key(ck, mesh)
+    out, counts, wall = launched(lambda: pmesh.run_batch_sharded(gates.gate_and, keys, xs, ys,
+                                                                 mesh=mesh))
+    if counts != {"blind_rotate": 1, "blind_rotate_sel": 0}:
+        raise AssertionError(f"batch-sharded gate across ranks: launches {counts}, want one of "
+                             "blind_rotate a rank")
+    if not (np.array_equal(out.a.cpu().numpy(), d["out_a"])
+            and np.array_equal(out.b.cpu().numpy(), d["out_b"])):
+        raise AssertionError("batch-sharded gate_and across ranks != the single-device gate")
+    walls = [sync_time(lambda: pmesh.run_batch_sharded(gates.gate_and, keys, xs, ys,
+                                                       mesh=mesh))[1] for _ in range(3)]
+    return {"B": int(d["out_b"].shape[0]), "launches_gate": counts, "s": wall,
+            "gates_per_s": int(d["out_b"].shape[0]) / statistics.median(walls)}
 
 
 def counted(fn, want=None):

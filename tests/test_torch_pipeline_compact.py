@@ -5,7 +5,18 @@ Tolerance: word-for-word equality.
 """
 
 import pytest
+import torch
 from _torch_pipeline_helpers import check_pipelined_kernels, check_pipelined_rotate, skip_without_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are tiny: one intra-op thread, so that the
+    workers of a parallel test run do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture

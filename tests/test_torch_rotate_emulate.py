@@ -12,6 +12,16 @@ from _torch_rotate_helpers import emulate_kernel, world
 from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are tiny: one intra-op thread, so that the
+    workers of a parallel test run do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (B, SM count): 3 gates take the 16 x 8 tile, 20 gates the 64 x 16 one on a
 # large card and the 128 x 32 one on a card of one SM, where 200 gates take
 # the 256 x 32 one; 70 gates are ragged against 64. R*bs = 192 (k2_l1_N64)

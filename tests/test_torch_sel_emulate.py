@@ -13,6 +13,16 @@ from _torch_rotate_helpers import SEL_GEOMETRIES, emulate_sel_kernel
 from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are tiny: one intra-op thread, so that the
+    workers of a parallel test run do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (B, SM count) -> tile at multikey_N256 (32, 16, 8 column tiles of 16, 32, 64
 # coefficients): below, at and above one gate tile, every tile shape
 SEL_CASES = {(3, 132): (16, 16), (16, 132): (16, 16), (20, 132): (64, 16), (64, 132): (64, 16),

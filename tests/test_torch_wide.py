@@ -40,6 +40,16 @@ from torus_fhe_tpu_torch.ops import fblock as tfblock
 from torus_fhe_tpu_torch.ops import poly as tpoly
 from torus_fhe_tpu_torch.parallel import make_mesh, mk_pipeline
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's tensors here are tiny: one intra-op thread, so that the
+    workers of a parallel test run do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 MU64 = 1 << 61
 NP_DTYPE = {32: np.int32, 64: np.int64}
 # (N, k, l, log2 Bg, bits): the 16-party gadget, the 256-party one, two output

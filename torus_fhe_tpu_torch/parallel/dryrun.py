@@ -4,9 +4,16 @@ Port of ``dryrun_multichip`` in the repository's ``__graft_entry__.py``:
 the batch-sharded gate, the party-sharded threshold decryption and the
 party-pipelined multikey NAND, each checked. ``devices`` may repeat a device:
 ``[torch.device("cpu")] * 8`` runs the plain versions on the CPU, and
-``[torch.device("cuda", 0)] * 8`` the kernels on one card.
+``[torch.device("cuda", 0)] * 8`` the kernels on one card. After
+``mesh.init_distributed`` every rank calls it with its own devices and the
+checks run across the ranks (the mesh is every rank's devices in rank order).
 
     python -m torus_fhe_tpu_torch.parallel.dryrun [cpu|cuda] [count]
+    torchrun --nproc-per-node 2 -m torus_fhe_tpu_torch.parallel.dryrun cpu 4
+
+``count`` is the number of mesh slots in all, split evenly over the
+processes; under torchrun the CPU takes gloo, the card NCCL (one process a
+card).
 """
 
 from __future__ import annotations
@@ -38,9 +45,9 @@ def dryrun_multichip(devices: Sequence) -> None:
     devices the compact-key pipelined NAND at 4 parties (decrypt-checked).
     Raises on the first failure."""
     devices = [torch.device(d) for d in devices]
-    k = len(devices)
-    m = pmesh.make_mesh(n_batch=k, n_party=1, devices=devices)
-    home = m.batch_devices()[0]
+    m = pmesh.make_mesh(n_party=1, devices=devices)
+    k = m.shape[pmesh.BATCH_AXIS]
+    home = m.home()
 
     params = test_parameters(n=16, N=64)
     sk, ck = api.make_key_pair(torch.Generator().manual_seed(7), params, device=home)
@@ -82,7 +89,7 @@ def dryrun_multichip(devices: Sequence) -> None:
         sks = [keys3gen.mk_party_keygen(g, p3, device=home) for _ in range(parties)]
         ck3 = keys3gen.mk_cloud_keygen(g, sks, p3, device=home, forms=("fbstream",),
                                        keep_samples=True)
-        m3 = pmesh.make_mesh(n_batch=1, n_party=parties, devices=devices[:parties])
+        m3 = pmesh.make_mesh(n_batch=1, n_party=parties, devices=devices)
         sel = mk_pipeline.build_sharded_mk_sel(ck3.bk_samples, p3, parties, m3)
         keys = [s.lwe for s in sks]
         xs3 = torch.arange(8, device=home) % 2 == 0
@@ -98,5 +105,14 @@ def dryrun_multichip(devices: Sequence) -> None:
 if __name__ == "__main__":
     kind = sys.argv[1] if len(sys.argv) > 1 else "cuda"
     count = int(sys.argv[2]) if len(sys.argv) > 2 else 8
-    dryrun_multichip([torch.device(kind, 0) if kind == "cuda" else torch.device(kind)] * count)
-    print(f"dryrun_multichip({kind} x {count}) OK")
+    spread = pmesh.init_distributed(backend="gloo" if kind == "cpu" else None)
+    world = torch.distributed.get_world_size() if spread else 1
+    if count % world:
+        raise SystemExit(f"{count} slots do not split over {world} processes")
+    dev = pmesh.rank_device() if kind == "cuda" else torch.device(kind)
+    try:
+        dryrun_multichip([dev] * (count // world))
+        print(f"dryrun_multichip({kind} x {count}, rank {pmesh.process_rank()} of {world}) OK")
+    finally:
+        if spread:
+            torch.distributed.destroy_process_group()
