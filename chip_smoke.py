@@ -120,7 +120,23 @@ read just after:
   (B=256), the rotate kernel the largest category; N6, run_mk_pipeline at
   mk_4party_3gen (compact key) on a synthetic cardio-format CSV, every
   prediction equal to plaintext_oracle and the threshold tail on ring 4 n.
-  N2, N4 and N5 run where their keys are held; N1, N3 and N6 after E3.
+  N2, N4 and N5 run where their keys are held; N1, N3 and N6 after E3;
+- the key forms and routes the user chooses (boot/bootstrap.py's
+  ``forms=`` and ``set_rotate_backend``), each with the counts at 0 before
+  it and each line with the card's name and power limit: V1, the
+  single-key scan route (the CMux chain of mux_rotate over the packed
+  TGSW kernels, the conv form rebuilt from the samples of the main path's
+  keys, torch ops) against the kernel's route ("auto", blind_rotate.cu in
+  stepvec mode) on one key, bootsAND at tfhe_128_tpu_fast B=64 (after S1)
+  and tfhe_128_tpu B=16 (after its gate): equal words, 0 wrong, no launch
+  on the scan route and one on the kernel's, both times, the conv key's
+  bytes from shapes and the int8 products; V2 and V3, inside E1 and E2
+  (whose keygens build the fb and conv forms at once): the NAND of 16 pairs
+  on the conv form (mk_2party_ccs; mk_2party_kms with fast_boot True and
+  False) == on the fb form, no launch; V4, after E3, the host native
+  runtime (ops/native.py) built with g++, share_secret_streaming at
+  thfhe_1024 3 of 5 through it == the numpy path, the shares decrypting on
+  the card.
 
 The compact kernel is also held against the expanded one on the full
 2-party key, each kernel against its plain version on one pipeline stage
@@ -158,6 +174,7 @@ import torch
 
 T0 = time.perf_counter()
 DEVICE = "cuda"
+SMI = ""  # the card's name and power limit, as nvidia-smi gives them
 SEED = 0
 MAIN_BATCH = 1024
 CHAIN = 4
@@ -197,6 +214,11 @@ PHASE_BOUND = 1 / 16  # max |phase - ideal| of a KMS gate, and of both at the te
 # E1: a CCS gate's noise std against tools/scheme_noise.ccs_noise_std, which
 # leaves out the steps' covariance through the mean of r (it adds, never removes)
 CCS_NOISE_BAND = (0.75, 1.5)
+V1_BATCH = {"tfhe_128_tpu_fast": 64, "tfhe_128_tpu": 16}  # V1: the scan route's batch a set
+V_BATCH = 16  # V2, V3: the conv routes' batch
+CONV_FIELDS = {"ccs": ("d_kern", "f0_kern", "f1_kern"), "kms": ("gsw_kern",)}
+FB_FIELDS = {"ccs": ("d_sel", "f0_sel", "f1_sel", "pk_fb", "sk_fb"), "kms": ("gsw_sel",)}
+V4_SHARING = ("thfhe_1024", 3, 5)  # V4: the set whose ring key is shared, t of p
 # circuit phases. C1 (tfhe_128_tpu_fast): (width, batch) of the adder, the
 # comparator and the minimum; (width, words, independent sorts) of the sort
 C1_ADD, C1_LESS, C1_MIN, C1_SORT = (32, 1024), (16, 1024), (16, 64), (16, 6, 8)
@@ -236,7 +258,7 @@ PRE_KS_GATE = 1e-4
 N3_SET, N3_TRIALS = "mk_2party_3gen", 300  # the exact route
 N3_ENVELOPE = 0.01625  # measurements/log__mk_2party_3gen_trials-300_exact.log
 N4_TRIALS = 256  # the CCS and KMS report steps
-PROFILE_TRIES = 3  # N5: traces taken at most while the profiler drops the rotate kernel's record
+PROFILE_TRIES = 3  # N5: traces taken at most while the profiler drops records of the body
 N6_KNN = ("mk_4party_3gen", 4, 5, 2, 8, 3)  # set, parties, train rows, test rows, width, k
 # P5: the mesh across processes on the one card: (backend, ranks, tasks) of
 # each group, spawned in turn; every rank runs on cuda:0, so the groups of
@@ -394,9 +416,11 @@ def noise_3gen(name: str, sks, ck, gen, rng, dev) -> dict:
 def profile_phase(tag: str, rotate: str, fn) -> dict:
     """N5: one call of fn under utils.profiling.device_trace. The rotate
     kernel's category ``rotate`` must be the largest, and the categories
-    must add up to the device total within 1%. A trace that holds no record
-    of the rotate kernel though the kernel launched (the profiler dropped
-    it) is logged and taken again, up to PROFILE_TRIES traces. Prints a
+    must add up to the device total within 1%. A trace that lost records of
+    the body (a guard of device_trace kept none of its records: the loss
+    reached past it) or holds no record of the rotate kernel though the
+    kernel launched is logged with its guards' records and taken again, up
+    to PROFILE_TRIES traces; the phase fails when none was whole. Prints a
     ``profile`` JSON line; returns the launches of each kernel over all
     traces."""
     import tempfile
@@ -408,22 +432,28 @@ def profile_phase(tag: str, rotate: str, fn) -> dict:
             with profiling.device_trace(tmp):
                 fn()
                 torch.cuda.synchronize()
-            return profiling.summarize_trace(tmp, top=5)
+            guards = {path: profiling.guard_records(profiling._load(path))
+                      for path in profiling._trace_files(tmp)}
+            return profiling.summarize_trace(tmp, top=5), guards
 
     total_counts = dict.fromkeys(("blind_rotate", "blind_rotate_sel"), 0)
     for attempt in range(1, PROFILE_TRIES + 1):
-        s, counts, wall = launched(traced)
+        (s, guards), counts, wall = launched(traced)
         total_counts = {k: total_counts[k] + counts[k] for k in counts}
         cats, total = s["by_category"], s["total_device_us"]
-        if rotate in cats or not any(counts.values()):
+        whole = s["intact"] and (rotate in cats or not any(counts.values()))
+        if whole:
             break
-        log(tag, f"trace {attempt}: no record of the rotate kernel, launched {counts} in it; "
-            f"recorded {cats}")
+        log(tag, f"trace {attempt}: intact {s['intact']}, launched {counts} in it; recorded "
+            f"{cats}; guards' records (kept, launched) {list(guards.values())}")
     print(json.dumps({"profile": tag, "total_device_us": total, "by_category": cats,
-                      "traces": attempt,
+                      "traces": attempt, "intact": s["intact"], "guards": list(guards.values()),
                       "top": [[name[:80], us, pct] for name, us, pct in s["by_op"]]}), flush=True)
     log(tag, f"device total {total / 1e3:.3f} ms of {wall * 1e3:.1f} ms wall; " + ", ".join(
         f"{c} {us / 1e3:.3f} ms" for c, us in cats.items()))
+    if not whole:
+        raise AssertionError(f"{tag}: all {attempt} traces lost records of the body "
+                             f"(intact {s['intact']}) or the rotate kernel's: {cats}")
     if not cats or max(cats, key=cats.get) != rotate:
         raise AssertionError(f"{tag}: the largest category is not {rotate}: {cats}")
     if abs(sum(cats.values()) - total) > 0.01 * total:
@@ -471,8 +501,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
 
     # 1. device
+    global SMI
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    SMI = smi
     log("device", f"{kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
 
@@ -514,8 +546,8 @@ def main() -> int:
     fast = P.tfhe_parameters_128_tpu_fast()
     gen = torch.Generator().manual_seed(SEED)
     (sk, ck), t_keygen = sync_time(lambda: api.make_key_pair(gen, fast, device=dev))
-    _, t_fb = sync_time(lambda: bootstrap.bootstrap_key_from_samples(
-        ck.bootstrap_key.samples, fast, dev))
+    _, t_fb = sync_time(lambda: bootstrap.rebuild_bk_forms(
+        ck.bootstrap_key.samples, fast, device=dev))
     geom = bootstrap.bk_geometry(fast)
     N, C = fast.rlwe_polynomial_degree, fast.rlwe_mask_size + 1
     log("keygen", f"tfhe_128_tpu_fast: {t_keygen:.2f} s (F-block build {t_fb:.2f} s), "
@@ -567,6 +599,9 @@ def main() -> int:
             rand_i32(rng, (64, l3.rlwe_mask_size + 1, N3)), decode_message(t3.a, 2 * N3),
             decode_message(t3.b, 2 * N3), gates.EIGHTH[1])
     log("tfhe_128_tpu", "B=64 bootsAND decrypts correctly")
+    scan_routes = {}
+    v1_launches = scan_route("tfhe_128_tpu", sk3, ck3, x3[:V1_BATCH["tfhe_128_tpu"]],
+                             y3[:V1_BATCH["tfhe_128_tpu"]], gen, scan_routes)
     del ck3
 
     # 6. times (informational) and the kernel at the main path's shapes
@@ -706,6 +741,8 @@ def main() -> int:
         f"== on the saved key word for word (B={MAIN_BATCH}), decrypts")
     del sk2, ck2, out2
 
+    B1 = V1_BATCH["tfhe_128_tpu_fast"]
+    v1_launches += scan_route("tfhe_128_tpu_fast", sk, ck, x[:B1], y[:B1], gen, scan_routes)
     single_key_circuits(sk, ck, gen, rng)
     aux_launches = threshold_aux(sk, ck, gen, rng, dev)
 
@@ -720,7 +757,9 @@ def main() -> int:
     p5 = mesh_across_processes(p5_dir.name, pipe["pipe_ms"])
     p5_dir.cleanup()
     routes = wide_route(dev, rng)
+    routes.update(scan_routes)
     routes.update(scheme_phases(dev, rng))
+    routes.update(native_phase(dev))
     for phase in (noise_single_key, noise_3gen_public, exact_route, mk_knn_phase):
         for k, n in phase(dev, rng, routes).items():
             n_launches[k] += n
@@ -735,7 +774,7 @@ def main() -> int:
          "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
          "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
          + pipe["launches"]["blind_rotate"] + circ["blind_rotate"] + aux_launches
-         + n_launches["blind_rotate"] + p5["blind_rotate"],
+         + n_launches["blind_rotate"] + p5["blind_rotate"] + v1_launches,
          "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
@@ -1333,6 +1372,167 @@ def wide_route(dev, rng) -> dict:
     return routes
 
 
+def scan_route(name: str, sk, ck, x, y, gen, routes: dict) -> int:
+    """V1: the single-key scan route (boot/bootstrap.py: the CMux chain of
+    mux_rotate over the packed TGSW kernels, torch ops) against the
+    kernel's route on one key. The conv form is rebuilt from the samples of
+    ``ck`` (no keygen); bootsAND runs with set_rotate_backend("scan") and
+    with "auto" (the Hopper kernel, K2, on the F-block key), each with the
+    counts at 0 before it: equal words, 0 wrong decryptions, no kernel
+    launch on the scan route and one on the kernel's. Adds a record to
+    ``routes``; returns the kernel's launches."""
+    from torus_fhe_tpu_torch.boot import api, bootstrap, gates
+    from torus_fhe_tpu_torch.ops import cuda_rotate, poly
+
+    params = ck.params
+    B = x.shape[0]
+    conv, t_rebuild = sync_time(lambda: bootstrap.rebuild_bk_forms(
+        ck.bootstrap_key.samples, params, ("conv",), DEVICE).kernels)
+    both = api.CloudKey(params, ck.bootstrap_key._replace(kernels=conv), ck.keyswitch_key)
+    cx, cy = api.encrypt(gen, sk, x), api.encrypt(gen, sk, y)
+    outs, times, counts = {}, {}, {}
+    for route in ("scan", "auto"):
+        bootstrap.set_rotate_backend(route)
+        try:
+            reset_launches(cuda_rotate)
+            poly.int8_matmul.calls = 0
+            outs[route], cold = sync_time(lambda: gates.gate_and(both, cx, cy))
+            counts[route] = {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+                             "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches,
+                             "int8_matmul": poly.int8_matmul.calls}
+            times[route] = [cold, sync_time(lambda: gates.gate_and(both, cx, cy))[1]]
+        finally:
+            bootstrap.set_rotate_backend("auto")
+    scan, auto = counts["scan"], counts["auto"]
+    if scan["blind_rotate"] or scan["blind_rotate_sel"] or scan["int8_matmul"] < params.lwe_size:
+        raise AssertionError(f"V1 {name}: the scan route's counts {scan}")
+    if auto["blind_rotate"] != 1 or auto["blind_rotate_sel"]:
+        raise AssertionError(f"V1 {name}: 'auto' launched {auto}, want blind_rotate once")
+    err = max(max_diff(outs["scan"].a, outs["auto"].a), max_diff(outs["scan"].b, outs["auto"].b))
+    wrong = {r: int(api.decrypt(sk, o).ne(x & y).sum()) for r, o in outs.items()}
+    if err or any(wrong.values()):
+        raise AssertionError(f"V1 {name}: scan != kernel words (max |diff| {err}) or wrong "
+                             f"decryptions {wrong}")
+    geom = bootstrap.bk_geometry(params)
+    bound, by = cuda_rotate.rotate_bound_ms(B, geom, conv.numel())
+    sizes = {"conv_bytes": conv.numel(), "fblock_bytes": ck.bootstrap_key.fb.numel()}
+    log(f"V1 {name}", f"bootsAND B={B}: scan route == kernel route word for word, 0 wrong of "
+        f"{B} on both; scan {times['scan'][1] * 1e3:.1f} ms ({scan['int8_matmul']} int8 "
+        f"products, no kernel launch), kernel {times['auto'][1] * 1e3:.2f} ms "
+        f"(blind_rotate {auto['blind_rotate']}x); conv key {conv.numel() / 1e6:.1f} MB from "
+        f"shapes {tuple(conv.shape)} (rebuilt in {t_rebuild:.2f} s) against the F-block key's "
+        f"{ck.bootstrap_key.fb.numel() / 1e9:.2f} GB; the rotate's bound {bound:.3f} ms ({by}) "
+        f"[{SMI}]")
+    routes[f"V1 {name}"] = {"route": "torch ops (scan: mux_rotate, Toeplitz int8 products)",
+                            "batch": B, "scan_s": times["scan"], "kernel_s": times["auto"],
+                            "scan_counts": scan, "kernel_counts": auto, "wrong": wrong["scan"],
+                            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+                            "rebuild_s": t_rebuild, **sizes}
+    return auto["blind_rotate"]
+
+
+def conv_route(tag: str, name: str, scheme, ck_fb, ck_conv, cx, cy, keys, want_bits,
+               allowed: int) -> dict:
+    """V2 (CCS) and V3 (KMS, fast_boot True and False): the NAND of the
+    first V_BATCH pairs on the conv form (the packed kernels, the exact
+    Toeplitz products) against the same NAND on the fb form of the same
+    keygen, each with the counts at 0 before it: equal words, no kernel
+    launch, at most ``allowed`` wrong decryptions. Returns the record."""
+    from torus_fhe_tpu_torch import mk
+    from torus_fhe_tpu_torch.mk import ccs
+    from torus_fhe_tpu_torch.ops import cuda_rotate, poly
+
+    B = V_BATCH
+    xs, ys = (mk.MKLweSample(c.a[:B], c.b[:B]) for c in (cx, cy))
+    short = "ccs" if scheme is ccs else "kms"
+    sizes = {f: tuple(getattr(ck_conv, f).shape) for f in CONV_FIELDS[short]}
+    rec = {"batch": B, "conv_bytes": sum(math.prod(v) for v in sizes.values()),
+           "conv_shapes": sizes}
+    for fast in ((None,) if scheme is ccs else (True, False)):
+        args = () if fast is None else (fast,)
+        reset_launches(cuda_rotate)
+        poly.int8_matmul.calls = 0
+        got, t_conv = sync_time(lambda: scheme.mk_gate_nand(ck_conv, xs, ys, *args))
+        got_n = {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+                 "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches,
+                 "int8_matmul": poly.int8_matmul.calls}
+        if got_n["blind_rotate"] or got_n["blind_rotate_sel"]:
+            raise AssertionError(f"{tag} {name}: the conv route launched a kernel: {got_n}")
+        want, t_fb = sync_time(lambda: scheme.mk_gate_nand(ck_fb, xs, ys, *args))
+        err = max(max_diff(got.a, want.a), max_diff(got.b, want.b))
+        wrong = int(mk.mk_decrypt(keys, got).ne(want_bits[:B]).sum())
+        mode = "" if fast is None else f" fast_boot={fast}"
+        if err or wrong > allowed:
+            raise AssertionError(f"{tag} {name}{mode}: conv != fb words (max |diff| {err}) or "
+                                 f"{wrong} wrong (at most {allowed})")
+        log(f"{tag} {name}{mode}", f"NAND B={B}: conv route == fb route word for word, {wrong} "
+            f"wrong; conv {t_conv:.3f} s ({got_n['int8_matmul']} int8 products, no kernel "
+            f"launch), fb {t_fb:.3f} s; conv form {rec['conv_bytes'] / 1e6:.1f} MB from shapes "
+            f"{sizes} [{SMI}]")
+        rec["fast_boot" if fast is None else f"fast_boot_{fast}"] = {
+            "conv_s": t_conv, "fb_s": t_fb, "wrong": wrong, "max_abs_err": err, **got_n}
+    return rec
+
+
+def native_phase(dev) -> dict:
+    """V4: the host native runtime (ops/native.py): built from
+    csrc/host_native.cpp with g++ here (a failed build fails the phase);
+    share_secret_streaming of a thfhe_1024 ring key, 3 of 5, through it ==
+    the numpy path on the same draws, and the shares of two subsets decrypt
+    a ciphertext on the card; its product == the numpy one at N = 1024.
+    Returns the ``routes`` record."""
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.ops import hostmath, native
+    from torus_fhe_tpu_torch.rlwe import rlwe_encrypt, rlwe_keygen
+    from torus_fhe_tpu_torch.threshold import decrypt as tdec
+    from torus_fhe_tpu_torch.threshold import shares as tsh
+
+    name, t, p = V4_SHARING
+    so, t_build = sync_time(native.build)
+    if not native.available():
+        raise AssertionError(f"V4: the host native library did not load ({so})")
+    rp = P.PARAMETER_REGISTRY[name]().rlwe
+    g = torch.Generator().manual_seed(SEED + 40)
+    rk = rlwe_keygen(g, rp, device=dev)
+    calls = []
+    stream, avail = native.bl_shares_stream, native.available
+    native.bl_shares_stream = lambda *a: calls.append(1) or stream(*a)
+    try:
+        got, t_native = sync_time(lambda: tsh.share_secret_streaming(
+            rk.key, t, p, torch.Generator().manual_seed(SEED + 41)))
+        native.available = lambda: False  # the numpy path, on the same draws
+        want, t_numpy = sync_time(lambda: tsh.share_secret_streaming(
+            rk.key, t, p, torch.Generator().manual_seed(SEED + 41)))
+    finally:
+        native.bl_shares_stream, native.available = stream, avail
+    if calls != [1] or sorted(got.shares) != sorted(want.shares) or any(
+            not np.array_equal(got.shares[k], v) for k, v in want.shares.items()):
+        raise AssertionError(f"V4: native shares != numpy shares (library calls {len(calls)})")
+    ct = rlwe_encrypt(g, tdec.encode_bits(0xC0DE, rp.polynomial_degree, n_bits=16, device=dev),
+                      1e-3, rk, rp, device=dev)
+    for subset in ([1, 2, 4], [3, 4, 5]):
+        plain = tdec.threshold_decrypt(ct, got, subset, 0.0, g)
+        if tdec.decode_bits(plain, n_bits=16) != 0xC0DE:
+            raise AssertionError(f"V4: the shares of {subset} do not decrypt")
+    rng = np.random.default_rng(SEED + 42)
+    a = rng.integers(-1, 2, (8, rp.polynomial_degree), dtype=np.int32)
+    b = rng.integers(-2**31, 2**31, (8, rp.polynomial_degree), dtype=np.int64).astype(np.int32)
+    prod, t_prod = sync_time(lambda: native.negacyclic_polymul(a, b, 32))
+    if not np.array_equal(prod, hostmath.negacyclic_polymul_host(a, b, 32)):
+        raise AssertionError("V4: the native product != the numpy product")
+    omp = "with OpenMP" if native.openmp() else "without OpenMP (its -fopenmp build failed)"
+    log("V4 native", f"{so} {omp}, built at its first use in this run (found or built here in "
+        f"{t_build:.2f} s); share_secret_streaming {name} {t} of {p}: "
+        f"{len(got.shares)} shares through the library in {t_native * 1e3:.1f} ms == the numpy "
+        f"path's ({t_numpy * 1e3:.1f} ms); subsets [1, 2, 4] and [3, 4, 5] decrypt 0xC0DE on "
+        f"the card; 8 products at N={rp.polynomial_degree} == numpy ({t_prod * 1e3:.1f} ms) "
+        f"[{SMI}]")
+    return {"V4 native": {"route": "host C++ (g++ -O3)", "openmp": native.openmp(),
+                          "build_s": t_build,
+                          "shares": len(got.shares), "native_s": t_native, "numpy_s": t_numpy,
+                          "product_s": t_prod}}
+
+
 def key_bytes(ck) -> int:
     """Bytes of a cloud key's tensors on its device."""
     return sum(v.numel() * v.element_size() for v in vars(ck).values()
@@ -1373,7 +1573,11 @@ def scheme_phases(dev, rng) -> dict:
         gen = torch.Generator().manual_seed(SEED + 200 + parties)
         t0 = time.perf_counter()
         sks = [keygen(gen, params, device=dev) for _ in range(parties)]
-        ck = cloud(gen, sks, params, device=dev)
+        short = "ccs" if scheme is ccs else "kms"
+        both = cloud(gen, sks, params, device=dev, forms=("fb", "conv"))  # V2, V3: one keygen
+        ck = dataclasses.replace(both, **{f: None for f in CONV_FIELDS[short]})
+        ck_conv = dataclasses.replace(both, **{f: None for f in FB_FIELDS[short]})
+        del both
         torch.cuda.synchronize()
         t_keygen = time.perf_counter() - t0
         keys = [sk.lwe for sk in sks]
@@ -1455,9 +1659,14 @@ def scheme_phases(dev, rng) -> dict:
             log(f"{tag} {name} fast_boot=False", f"NAND B={KMS_SLOW_BATCH}: 0 wrong, max |phase - "
                 f"ideal| {err_s:.5f}, std {std_s:.5f}; {t_slow:.3f} s (both parties through "
                 "the TLev rotate and the relinearisation)")
+        # V2 / V3: the conv form of the same keygen against the fb form
+        allowed = allowed_wrong(V_BATCH, ccs_noise_std(params) * CCS_NOISE_BAND[1]) \
+            if scheme is ccs else 0
+        rec["conv"] = conv_route("V2" if scheme is ccs else "V3", name, scheme, ck, ck_conv,
+                                 cx, cy, keys, ~(x & y), allowed)
         routes[name] = rec
         kept[name] = (scheme, ck, cx, cy, out)
-        del sks, temp
+        del sks, temp, ck_conv
         torch.cuda.empty_cache()
 
     # E3. the same keys on the card and on the CPU at the test sets: equal words

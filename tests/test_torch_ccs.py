@@ -151,7 +151,7 @@ def test_uni_product_equal_jax(parties):
         d_f = fblock.expand_fblock_chunk(tck.d_sel[s:s + 1], geom)[0]
         f_f = fblock.expand_fblock_chunk(torch.cat([tck.f0_sel[s:s + 1], tck.f1_sel[s:s + 1]], -1),
                                          ccs._pair_geometry(geom))[0]
-        got = ccs.uni_product(torch.from_numpy(x), d_f, f_f, tck, s // n)
+        got = ccs.uni_product_fb(torch.from_numpy(x), d_f, f_f, tck, s // n)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
@@ -185,11 +185,14 @@ def test_own_keys_truth_table_and_phase(parties):
 
 
 def test_conv_request_builds_the_fb_form():
+    """The name is from when the port read "conv" as the fb form. It now pins
+    the opposite: forms=("conv",) builds the conv form (d_kern, no lines),
+    as JAX's keygen does; unknown forms and too many parties raise."""
     params = tparams.test_parameters_ccs(parties=2, n=4, N=64)
     gen = torch.Generator().manual_seed(0)
     sks = [ccs.ccs_party_keygen(gen, params, device="cpu") for _ in range(2)]
     ck = ccs.ccs_cloud_keygen(gen, sks, params, device="cpu", forms=("conv",))
-    assert ck.d_sel.shape == (8, 3, 128, 4)
+    assert ck.d_kern.shape == (8, 4, 3, 64) and ck.d_sel is None  # the conv form, as JAX's
     with pytest.raises(ValueError):
         ccs.ccs_cloud_keygen(gen, sks, params, device="cpu", forms=("fbstream",))
     with pytest.raises(ValueError):

@@ -49,7 +49,7 @@ ENTRY_POINTS = {
     "make_secret_key": lambda d: api.make_secret_key(_gen(), PARAMS, device=d).key.key,
     "make_key_pair": lambda d: api.make_key_pair(_gen(), PARAMS, device=d)[1].bootstrap_key.fb,
     "bootstrap_keygen": _bootstrap_keygen,
-    "bootstrap_key_from_samples": lambda d: bootstrap.bootstrap_key_from_samples(
+    "rebuild_bk_forms": lambda d: bootstrap.rebuild_bk_forms(
         torch.zeros((8, PARAMS.bs_decomp_length, 2, 2, 64), dtype=torch.int32), PARAMS,
         device=d).fb,
     "keyswitch_keygen": _keyswitch_keygen,

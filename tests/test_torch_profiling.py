@@ -92,6 +92,47 @@ def test_summary_of_host_lanes_counts_nested_spans_once(tmp_path):
         profiling.summarize_trace(str(tmp_path / "none"))
 
 
+def _guarded_trace(kept_before, kept_after):
+    """A trace of one rotate between device_trace's two guards of 3 adds
+    each, the first ``kept_before`` and ``kept_after`` of whose device
+    records are kept."""
+    def call(ts, corr):
+        return {**_ev("cudaLaunchKernel", "cuda_runtime", ts, 2.0), "args": {"correlation": corr}}
+
+    def rec(name, ts, corr):
+        return {**_ev(name, "kernel", ts, 5.0, pid=0, tid=7), "args": {"correlation": corr}}
+
+    before, after = profiling.GUARDS
+    events = [_ev(before, "user_annotation", 0, 40.0), _ev(after, "user_annotation", 200, 40.0)]
+    for i in range(3):
+        events += [call(10 * i + 5, i)] + [rec(ELEM, 10 * i + 6, i)] * (i < kept_before)
+        events += [call(200 + 10 * i + 5, 10 + i)] + [rec(ELEM, 200 + 10 * i + 6, 10 + i)] * (
+            i < kept_after)
+    return events + [call(50, 5), {**rec(SEL, 60, 5), "dur": 100.0}]
+
+
+@pytest.mark.parametrize("kept", [(3, 3), (1, 3), (0, 3), (3, 0)])
+def test_guards_of_a_trace(tmp_path, kept, monkeypatch):
+    """device_trace's guards: their records are matched by correlation id
+    with the launch calls inside their host spans, left out of the summary,
+    and a trace is intact while each guard kept one; a guard's loss grows
+    the next guards (twice the loss, four times the launches when all were
+    lost), never shrinks them."""
+    events = _guarded_trace(*kept)
+    _write(tmp_path / "g.pt.trace.json.gz", events)
+    before, after = profiling.GUARDS
+    records = {before: (kept[0], 3), after: (kept[1], 3)}
+    assert profiling.guard_records(events) == records
+    s = profiling.summarize_trace(str(tmp_path))
+    assert s["total_device_us"] == 100.0 and s["by_category"] == {
+        "blind_rotate_sel (compact key)": 100.0}
+    assert s["intact"] is (0 not in kept)
+    monkeypatch.setattr(profiling, "_guard", dict.fromkeys(profiling.GUARDS, 5))
+    profiling.learn(records)
+    grown = {k: 5 if n == 3 else max(5, 2 * (3 - n) if n else 12) for k, (n, _) in records.items()}
+    assert profiling._guard == grown
+
+
 def test_cpu_trace_of_a_gate(tmp_path):
     params = tparams.test_parameters(n=8, N=64)
     gen = torch.Generator().manual_seed(0)

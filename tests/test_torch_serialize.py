@@ -108,8 +108,9 @@ def test_key_and_ciphertext_files_from_jax_load_in_the_port(tmp_path, jax_single
     got = gates.gate_and(tck, tx, ty)
     _same(got, _jax_gate(jgates.gate_and, ck, cx, cy))
     np.testing.assert_array_equal(api.decrypt(tsk, got).numpy(), msgs & other)
-    assert ser.load_cloud_key(paths[1], forms=("conv",), device="cpu").bootstrap_key.fb.shape == \
-        tck.bootstrap_key.fb.shape  # conv is read as fblock
+    conv = ser.load_cloud_key(paths[1], forms=("conv",), device="cpu").bootstrap_key
+    assert conv.fb is None  # conv builds the packed kernels, byte-equal to JAX's
+    np.testing.assert_array_equal(conv.kernels.numpy(), np.asarray(ck.bootstrap_key.kernels))
     with pytest.raises(ValueError, match="builds"):
         ser.load_cloud_key(paths[1], forms=("pallas",), device="cpu")
     with pytest.raises(ValueError, match="secret_key"):

@@ -1,9 +1,11 @@
 """Single-key TFHE user API: keys, encrypt, decrypt.
 
 Port of torus_fhe_tpu/boot/api.py. Sampling and the exact keygen products
-run on the generator's device (the host, for a CPU generator); the F-block
-expansion of the bootstrapping key runs on ``device``, where the finished
-keys live. ``device=None`` is the card (core/device.resolve_device): the
+run on the generator's device (the host, for a CPU generator); the
+bootstrapping key's forms (``forms``: the F-block key "fblock", this
+package's default, and/or the packed kernels "conv", the JAX package's
+default; boot/bootstrap.py) are built on ``device``, where the finished keys
+live. ``device=None`` is the card (core/device.resolve_device): the
 current CUDA device, or a RuntimeError without one; ``device="cpu"`` runs the
 plain versions on the CPU.
 """
@@ -40,24 +42,26 @@ def make_secret_key(generator: torch.Generator, params: SchemeParams,
 
 
 def make_cloud_key(generator: torch.Generator, secret_key: SecretKey,
-                   device=None) -> CloudKey:
-    """Bootstrapping and keyswitch keys under a fresh RLWE key."""
+                   device=None, forms=("fblock",)) -> CloudKey:
+    """Bootstrapping and keyswitch keys under a fresh RLWE key; ``forms``:
+    the bootstrapping key's forms."""
     params = secret_key.params
     device = resolve_device(device)
     rlwe_key = rlwe_keygen(generator, params.rlwe)
     bk = bootstrap_keygen(generator, params.bs_noise_stddev, secret_key.key,
-                          rlwe_key, params, device=device)
+                          rlwe_key, params, device=device, forms=forms)
     ks = keyswitch_keygen(generator, params.ks_noise_stddev, params.ks,
                           secret_key.key, extract_lwe_key(rlwe_key), device=device)
     return CloudKey(params, bk, ks)
 
 
 def make_key_pair(generator: torch.Generator, params: SchemeParams,
-                  device=None) -> tuple[SecretKey, CloudKey]:
-    """(secret, cloud) pair, both on ``device``."""
+                  device=None, forms=("fblock",)) -> tuple[SecretKey, CloudKey]:
+    """(secret, cloud) pair, both on ``device``; ``forms``: the
+    bootstrapping key's forms."""
     device = resolve_device(device)
     sk = make_secret_key(generator, params, device=device)
-    return sk, make_cloud_key(generator, sk, device=device)
+    return sk, make_cloud_key(generator, sk, device=device, forms=forms)
 
 
 def encrypt(generator: torch.Generator, secret_key: SecretKey,

@@ -3,7 +3,8 @@
 The JAX package and this one compute on the same key when the port takes the
 LWE key bits, the compact TGSW samples and the keyswitch table of a JAX
 ``SecretKey``/``CloudKey`` (``np.asarray`` of each field) and rebuilds its own
-F-block key from the samples. The same holds for the 3gen multikey keys
+F-block key from the samples; the conv form's packed kernels cross as they
+are (``kernels=``), as do those of the CCS and KMS keys. The same holds for the 3gen multikey keys
 (``MKSecretKey``, ``MKCloudKey`` made with ``keep_samples=True``), for the
 CCS and KMS multikey keys (their cloud keys by field name; their secret keys
 through ``mk_secret_keys_from_numpy``), for the public key, the packing key
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .boot.api import CloudKey, SecretKey
-from .boot.bootstrap import bootstrap_key_from_samples
+from .boot.bootstrap import rebuild_bk_forms
 from .boot.keyswitch import KeyswitchKey, pad_table
 from .boot.pack import PackingKey
 from .core.device import resolve_device
@@ -39,13 +40,18 @@ def secret_key_from_numpy(params: SchemeParams, key_bits: np.ndarray,
 
 
 def cloud_key_from_numpy(params: SchemeParams, samples: np.ndarray, ks_mat: np.ndarray,
-                         n_in: int, n_out: int, device=None) -> CloudKey:
+                         n_in: int, n_out: int, device=None, forms=("fblock",),
+                         kernels=None) -> CloudKey:
     """samples: (n, l, k+1, k+1, N) TGSW samples (``bootstrap_key.samples``);
     ks_mat: (n_in*l*(base-1), (n_out+1)*4) int8 table
-    (``keyswitch_key.mat``). The F-block key is built on ``device``."""
+    (``keyswitch_key.mat``). The bootstrapping key's ``forms`` are built on
+    ``device`` from the samples; with "conv" in ``forms``, JAX's packed
+    kernels (``bootstrap_key.kernels``), where given, are taken as they are."""
     device = resolve_device(device)
-    bk = bootstrap_key_from_samples(torch.tensor(np.asarray(samples, np.int32)),
-                                    params, device)
+    npdt = np.int32 if params.rlwe_bits == 32 else np.int64
+    bk = rebuild_bk_forms(torch.tensor(np.asarray(samples, npdt)), params, forms, device)
+    if "conv" in forms and kernels is not None:
+        bk = bk._replace(kernels=torch.tensor(np.asarray(kernels, np.int8), device=device))
     mat = pad_table(torch.tensor(np.asarray(ks_mat, np.int8)))
     return CloudKey(params, bk, KeyswitchKey(mat.to(device), int(n_in), int(n_out)))
 
@@ -82,20 +88,23 @@ def mk_cloud_key_from_numpy(params: SchemeParams3Gen, samples: np.ndarray,
         parties, forms, resolve_device(device), keep_samples=True)
 
 
-def ccs_cloud_key_from_numpy(params, parties: int, device=None, **fields) -> ccs.CCSCloudKey:
+def ccs_cloud_key_from_numpy(params, parties: int, device=None, forms=("fb",),
+                             **fields) -> ccs.CCSCloudKey:
     """``fields``: the arrays of a JAX ``CCSCloudKey`` by field name
-    (``d_sel``, ``f0_sel``, ``f1_sel`` or the conv form's ``d_kern``,
+    (``d_sel``, ``f0_sel``, ``f1_sel`` and/or the conv form's ``d_kern``,
     ``f0_kern``, ``f1_kern``; ``pk_kern``, ``sk_kern``, ``ks_mats``), placed
-    on ``device`` in this package's layout (``mk.ccs.cloud_key_from_fields``)."""
-    return ccs.cloud_key_from_fields(params, int(parties), fields, resolve_device(device))
+    on ``device`` in ``forms`` (``mk.ccs.cloud_key_from_fields``: a form's
+    fields as they are where given)."""
+    return ccs.cloud_key_from_fields(params, int(parties), fields, resolve_device(device), forms)
 
 
-def kms_cloud_key_from_numpy(params, parties: int, device=None, **fields) -> kms.KMSCloudKey:
+def kms_cloud_key_from_numpy(params, parties: int, device=None, forms=("fb",),
+                             **fields) -> kms.KMSCloudKey:
     """``fields``: the arrays of a JAX ``KMSCloudKey`` by field name
-    (``gsw_sel`` or the conv form's ``gsw_kern``; ``d_kern``, ``f0_kern``,
-    ``f1_kern``, ``pk_kern``, ``sk_kern``, ``ks_mats``), placed on ``device``
-    in this package's layout (``mk.kms.cloud_key_from_fields``)."""
-    return kms.cloud_key_from_fields(params, int(parties), fields, resolve_device(device))
+    (``gsw_sel`` and/or the conv form's ``gsw_kern``; ``d_kern``,
+    ``f0_kern``, ``f1_kern``, ``pk_kern``, ``sk_kern``, ``ks_mats``), placed
+    on ``device`` in ``forms`` (``mk.kms.cloud_key_from_fields``)."""
+    return kms.cloud_key_from_fields(params, int(parties), fields, resolve_device(device), forms)
 
 
 def mk_lwe_from_numpy(a: np.ndarray, b: np.ndarray, device=None) -> MKLweSample:

@@ -33,21 +33,32 @@ def _gen(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def _forms(arg: str):
+    """The bootstrapping-key forms of a comma-separated ``--forms``, or None
+    (with the reason on stderr) for a name that is not a form."""
+    from .boot.bootstrap import FORMS
+
+    forms = tuple(arg.split(","))
+    if set(forms) - set(FORMS):
+        print(f"forms {arg}: the bootstrapping-key forms are {', '.join(FORMS)}", file=sys.stderr)
+        return None
+    return forms
+
+
 def _keygen(args) -> int:
     from .boot import api
     from .core.params import PARAMETER_REGISTRY
     from .utils import serialize
 
-    if set(args.forms.split(",")) - {"fblock", "conv"}:
-        print(f"forms {args.forms}: this package builds 'fblock' (and reads 'conv' as it)",
-              file=sys.stderr)
+    forms = _forms(args.forms)
+    if forms is None:
         return 2
     params = PARAMETER_REGISTRY[args.params]()
     t0 = time.time()
-    sk, ck = api.make_key_pair(_gen(args.seed), params, device=args.device)
+    sk, ck = api.make_key_pair(_gen(args.seed), params, device=args.device, forms=forms)
     serialize.save_secret_key(args.secret, sk)
     serialize.save_cloud_key(args.cloud, ck)
-    print(f"keygen({args.params}, forms=fblock) -> {args.secret}, {args.cloud} "
+    print(f"keygen({args.params}, forms={args.forms}) -> {args.secret}, {args.cloud} "
           f"[{time.time() - t0:.1f}s]")
     return 0
 
@@ -67,7 +78,9 @@ def _eval(args) -> int:
     from .boot import gates
     from .utils import serialize
 
-    forms = tuple(args.forms.split(",")) if args.forms else None
+    forms = _forms(args.forms)
+    if forms is None:
+        return 2
     ck = serialize.load_cloud_key(args.cloud, forms=forms, device=args.device)
     a = serialize.load_lwe(args.a, device=args.device)
     b = serialize.load_lwe(args.b, device=args.device)
@@ -211,9 +224,10 @@ def main(argv=None) -> int:
     k.add_argument("--cloud", default="cloud.key.npz")
     k.add_argument("--seed", type=int, default=0)
     k.add_argument("--forms", default="fblock",
-                   help="bootstrapping-key form: fblock, the only one this package builds "
-                        "('conv' is read as fblock); the saved key is compact and eval "
-                        "rebuilds the form on load")
+                   help="comma-separated bootstrapping-key forms to build: fblock (the "
+                        "F-block key, the Hopper kernel's route) and/or conv (the packed "
+                        "kernels, the scan route); the saved key is compact either way and "
+                        "eval rebuilds its forms on load")
     k.set_defaults(fn=_keygen)
 
     e = sub.add_parser("encrypt", help="bitwise-encrypt an integer")
@@ -230,9 +244,10 @@ def main(argv=None) -> int:
     v.add_argument("b")
     v.add_argument("--cloud", default="cloud.key.npz")
     v.add_argument("--out", default="out.npz")
-    v.add_argument("--forms", default=None,
-                   help="the bootstrapping-key form to rebuild from the key file (default: "
-                        "the file's; fblock, with conv read as fblock)")
+    v.add_argument("--forms", default="fblock",
+                   help="comma-separated bootstrapping-key forms to rebuild from the key "
+                        "file: fblock and/or conv (the route follows the form: "
+                        "boot/bootstrap.set_rotate_backend's 'auto')")
     v.set_defaults(fn=_eval)
 
     d = sub.add_parser("decrypt", help="decrypt an integer word")

@@ -2,7 +2,7 @@
 
 Port of torus_fhe_tpu/core/rng.py. Each sampler draws on the generator's
 device and returns the result on ``device`` (default: the generator's). The
-keystream differs from jax.random's, so keys and ciphertexts made here are
+keystream is not jax.random's, so keys and ciphertexts made here are
 checked by decryption, not word for word.
 """
 
@@ -45,6 +45,13 @@ def negative_binary(generator: torch.Generator, shape, dtype=torch.int32, device
     w = NEGATIVE_BINARY_WEIGHT
     out = (u >= 1.0 - w).to(dtype) - (u < w).to(dtype)
     return out.to(device)
+
+
+def uniform_ternary(generator: torch.Generator, shape, dtype=torch.int32, device=None):
+    """Uniform in {-1, 0, 1}."""
+    raw = torch.randint(-1, 2, tuple(shape), generator=generator, dtype=dtype,
+                        device=generator.device)
+    return raw.to(device)
 
 
 def gaussian_float(generator: torch.Generator, sigma: float, shape, device=None):

@@ -12,6 +12,7 @@ import torch
 
 from .core import rng
 from .core.params import LweParams
+from .core.torus import double_to_torus
 
 
 class LweKey(NamedTuple):
@@ -55,6 +56,16 @@ def lwe_encrypt(generator: torch.Generator, message, alpha: float,
     a = rng.uniform_torus(generator, shape + (lwe_key.size,), device=device)
     noise = rng.gaussian_torus(generator, 0, alpha, shape, device=device)
     b = msg + noise + torch.sum(a * lwe_key.key, dim=-1, dtype=torch.int32)
+    return LweSample(a, b)
+
+
+def lwe_encrypt_with_noise(message, noise, a: torch.Tensor, lwe_key: LweKey) -> LweSample:
+    """The deterministic encryption: b = message + double_to_torus(noise) +
+    <a, s> for a given mask ``a`` (..., n) and float noise, on a's device."""
+    noise = torch.as_tensor(noise, device=a.device)
+    msg = torch.as_tensor(message, dtype=torch.int32, device=a.device)
+    b = msg + double_to_torus(noise, torch.int32) + torch.sum(a * lwe_key.key, dim=-1,
+                                                              dtype=torch.int32)
     return LweSample(a, b)
 
 

@@ -12,7 +12,11 @@ key (``bk_fb_sel``) blind_rotate_sel.cu, and CPU keys their plain versions
 ``MKCloudKey.exact``), the key is not rounded: the chain runs on the 64-bit
 torus over the raw samples' lines, as the torch-op scan that
 ``rotate_streamed`` picks from the 64-bit geometry, and the extract truncates
-the int64 accumulator to the 32-bit LWE sample the keyswitch reads.
+the int64 accumulator to the 32-bit LWE sample the keyswitch reads. The
+rotate-backend switch of boot/bootstrap.py is read where the JAX package
+reads it: ``set_rotate_backend("scan")`` sends a gate off the hi-word route
+onto the exact 64-bit chain (JAX's conv scan), which a key that holds the
+exact lines runs and any other key refuses.
 
 The multikey keyswitch applies every party's table to the same extracted
 mask: one one-hot digit matrix against the party-concatenated tables, one
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..boot.bootstrap import get_rotate_backend
 from ..core.params import TGswParams
 from ..core.torus import decode_message
 from ..lwe import LweSample
@@ -65,6 +70,9 @@ def _fast_rotate_extract(ck: MKCloudKey, mu: int, bara: torch.Tensor, barb: torc
     key has it, else the compact one). bara: (B, parties*n) int32; barb:
     (B,) int32."""
     params = ck.params
+    if get_rotate_backend() == "scan" and not ck.exact:
+        raise ValueError("the scan backend runs the exact 64-bit chain: it needs a cloud key "
+                         "with the exact lines (forms=('conv',))")
     if not ck.exact and not mk_fb_supported(params):
         raise ValueError("a wide-digit cloud key holds the exact lines of its raw samples "
                          "(the fbstream form, exact=True)")

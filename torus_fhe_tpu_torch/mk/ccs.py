@@ -14,12 +14,15 @@ limb blocks. Keygen products run on the host in exact numpy
 (ops/hostmath); the finished key moves to ``device`` (None: the card,
 core/device.resolve_device; ``"cpu"``: the CPU).
 
-The key holds the JAX package's ``"fb"`` form: the compact lines of the
-per-step d1/f0/f1 (expanded chunk by chunk at rotate time) and the
-pre-expanded public-key and shared-key blocks. The JAX ``"conv"`` form
-(packed per-step kernels for its XLA conv scan) is not carried: a request
-for it builds the F-block form, and a key file that holds only it is turned
-into lines on load (``cloud_key_from_fields``).
+The key holds one or both of the JAX package's forms (``forms``): ``"fb"``,
+this package's default, the compact lines of the per-step d1/f0/f1
+(expanded chunk by chunk at rotate time) and the pre-expanded public-key and
+shared-key blocks, whose products are F-block matmuls; ``"conv"``, the JAX
+package's default, the packed per-step kernels (``pack_l_to_1``), whose
+products are the exact digit-side Toeplitz product of ops/poly
+(``gadget_contract``; JAX's XLA conv scan). The bootstrap takes the fb route
+when the key has its lines, else the conv route (``ccs_blind_rotate``); both
+give the same words.
 """
 
 from __future__ import annotations
@@ -104,20 +107,21 @@ def uni_encrypt_bits(generator: torch.Generator, messages, alpha: float, rlwe_ke
 
 @dataclass
 class CCSCloudKey:
-    """The CCS cloud key in its F-block form, field names as the JAX
-    package's ``CCSCloudKey``.
+    """The CCS cloud key, field names as the JAX package's ``CCSCloudKey``.
 
-    ``d_sel``, ``f0_sel``, ``f1_sel``: (P*n, l, 2N, 4) int8, the compact
-    lines of d1, f0, f1 of each (party, key bit), party-major
-    (``fblock.build_sel`` layout on every device). ``pk_fb``: (P, D*l*bs,
-    4*bs) int8, the expanded blocks of the party public keys; ``sk_fb``:
+    The fb form: ``d_sel``, ``f0_sel``, ``f1_sel``: (P*n, l, 2N, 4) int8,
+    the compact lines of d1, f0, f1 of each (party, key bit), party-major
+    (``fblock.build_sel`` layout on every device); ``pk_fb``: (P, D*l*bs,
+    4*bs) int8, the expanded blocks of the party public keys, ``sk_fb``:
     (D*l*bs, 4*bs), the shared key's; on a CUDA device both are stored with
     the reduction index contiguous (transposed strides), the form cuBLASLt's
-    tensor-core int8 kernels take. ``pk_kern`` (P, 4, l, N) and ``sk_kern``
-    (4, l, N): the same keys packed (``poly.pack_kernels_host``), which the
-    key files carry. ``ks_mats``: (P, K, cols) int8 per-party keyswitch
-    tables, cols = (n+1)*4 padded to a multiple of 8, K-contiguous on a CUDA
-    device.
+    tensor-core int8 kernels take. The conv form: ``d_kern``, ``f0_kern``,
+    ``f1_kern``: (P*n, 4, l, N) int8, the same d1, f0, f1 packed
+    (``pack_l_to_1``). Both forms: ``pk_kern`` (P, 4, l, N) and ``sk_kern``
+    (4, l, N), the public and shared keys packed, which the key files carry
+    and the conv route reads; ``ks_mats``: (P, K, cols) int8 per-party
+    keyswitch tables, cols = (n+1)*4 padded to a multiple of 8, K-contiguous
+    on a CUDA device.
     """
 
     pk_kern: torch.Tensor
@@ -125,11 +129,14 @@ class CCSCloudKey:
     ks_mats: torch.Tensor
     parties: int
     params: SchemeParamsCCS
-    d_sel: torch.Tensor
-    f0_sel: torch.Tensor
-    f1_sel: torch.Tensor
-    pk_fb: torch.Tensor
-    sk_fb: torch.Tensor
+    d_sel: torch.Tensor | None = None
+    f0_sel: torch.Tensor | None = None
+    f1_sel: torch.Tensor | None = None
+    pk_fb: torch.Tensor | None = None
+    sk_fb: torch.Tensor | None = None
+    d_kern: torch.Tensor | None = None
+    f0_kern: torch.Tensor | None = None
+    f1_kern: torch.Tensor | None = None
 
 
 def ccs_fb_geometry(params: SchemeParamsCCS, parties: int) -> fblock.FBlockGeometry:
@@ -153,9 +160,11 @@ def k_major(mat: torch.Tensor) -> torch.Tensor:
     return mat.transpose(-1, -2).contiguous().transpose(-1, -2) if mat.is_cuda else mat
 
 
-def check_forms(forms) -> None:
+def check_forms(forms) -> tuple:
+    forms = tuple(forms)
     if not forms or set(forms) - {"fb", "conv"}:
-        raise ValueError(f"forms {forms}: this package builds 'fb' (and reads 'conv' as it)")
+        raise ValueError(f"forms {forms}: the key is built in 'fb' and/or 'conv'")
+    return forms
 
 
 def pack_l_to_1(polys: np.ndarray, bits: int) -> np.ndarray:
@@ -169,68 +178,86 @@ def _lines(polys: np.ndarray, geom: fblock.FBlockGeometry) -> np.ndarray:
     return fblock.build_sel(np.asarray(polys).reshape(-1, geom.R, 1, 1, geom.N), geom)
 
 
-def _cloud_key(params: SchemeParamsCCS, parties: int, sels, pub: np.ndarray,
+def _cloud_key(params: SchemeParamsCCS, parties: int, sels, kerns, pub: np.ndarray,
                shared: np.ndarray, ks_mats: np.ndarray, device) -> CCSCloudKey:
     """Place the key on ``device``: ``sels`` the d1/f0/f1 lines (P*n, l, 2N,
-    4) int8, ``pub`` (P, l, N) and ``shared`` (l, N) torus, ``ks_mats``
-    (P, K, (n+1)*4) int8."""
+    4) int8 of the fb form (None without it), ``kerns`` their packed kernels
+    (P*n, 4, l, N) int8 of the conv form (None without it), ``pub`` (P, l, N)
+    and ``shared`` (l, N) torus, ``ks_mats`` (P, K, (n+1)*4) int8."""
     geom = ccs_fb_geometry(params, parties)
     bits = params.rlwe_bits
-    d_sel, f0_sel, f1_sel = (torch.tensor(np.asarray(s, np.int8), device=device) for s in sels)
-    keys = torch.from_numpy(_lines(np.concatenate([pub, shared[None]]), geom)).to(device)
-    fb = k_major(fblock.expand_fblock_chunk(keys, geom))  # (P+1, D*l*bs, 4*bs)
+    on = lambda a: torch.tensor(np.asarray(a, np.int8), device=device)
+    sel = kern = (None, None, None)
+    pk_fb = sk_fb = None
+    if sels is not None:
+        sel = tuple(on(x) for x in sels)
+        keys = torch.from_numpy(_lines(np.concatenate([pub, shared[None]]), geom)).to(device)
+        fb = k_major(fblock.expand_fblock_chunk(keys, geom))  # (P+1, D*l*bs, 4*bs)
+        pk_fb, sk_fb = fb[:parties], fb[parties]
+    if kerns is not None:
+        kern = tuple(on(x) for x in kerns)
     mats = pad_table(torch.tensor(np.asarray(ks_mats, np.int8)).flatten(0, 1))
     return CCSCloudKey(
-        torch.from_numpy(pack_l_to_1(pub, bits)).to(device),
-        torch.from_numpy(pack_l_to_1(shared, bits)).to(device),
+        on(pack_l_to_1(pub, bits)), on(pack_l_to_1(shared, bits)),
         k_major(mats.reshape(parties, -1, mats.shape[1]).to(device)), parties, params,
-        d_sel, f0_sel, f1_sel, fb[:parties], fb[parties])
+        *sel, pk_fb, sk_fb, *kern)
 
 
 def ccs_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[CCSSecretKey],
                      params: SchemeParamsCCS, device=None, forms=("fb",)) -> CCSCloudKey:
     """The CCS cloud-key pipeline: shared key, public keys, per-party
-    uni-encryptions of the LWE key bits, keyswitch keys. ``forms``: the
-    F-block form ("fb"; the JAX package's "conv" is read as it)."""
+    uni-encryptions of the LWE key bits, keyswitch keys. ``forms``: "fb"
+    (the default) and/or "conv", both from the one keygen."""
     parties = len(secret_keys)
     if parties > params.max_parties:
         raise ValueError(f"{parties} parties, the set serves {params.max_parties}")
-    check_forms(forms)
+    forms = check_forms(forms)
     device = resolve_device(device)
     geom = ccs_fb_geometry(params, parties)
     shared = gen_shared_key(generator, params).cpu().numpy()
     pubs = np.stack([ccs_public_keygen(generator, sk.rlwe, shared, params) for sk in secret_keys])
     parts = [uni_encrypt_bits(generator, sk.lwe.key, params.bs_noise_stddev, sk.rlwe, shared,
                               params.tgsw) for sk in secret_keys]
-    sels = [_lines(np.concatenate([p[i] for p in parts]), geom) for i in range(3)]
+    polys = [np.concatenate([p[i] for p in parts]) for i in range(3)]  # d1, f0, f1 (P*n, l, N)
     cols = (params.lwe_size + 1) * 4
     mats = np.stack([keyswitch_keygen(generator, params.ks_noise_stddev, params.ks, sk.lwe,
                                       extract_lwe_key(sk.rlwe), device="cpu").mat[:, :cols].numpy()
                      for sk in secret_keys])
-    return _cloud_key(params, parties, sels, pubs, shared, mats, device)
+    sels = [_lines(x, geom) for x in polys] if "fb" in forms else None
+    kerns = [pack_l_to_1(x, params.rlwe_bits) for x in polys] if "conv" in forms else None
+    return _cloud_key(params, parties, sels, kerns, pubs, shared, mats, device)
 
 
 def cloud_key_from_fields(params: SchemeParamsCCS, parties: int, fields: dict,
-                          device=None) -> CCSCloudKey:
-    """The cloud key from the JAX package's ``CCSCloudKey`` fields as numpy
-    arrays (a key file's, or ``np.asarray`` of each field): the lines
-    ``d_sel``/``f0_sel``/``f1_sel``, or where a key holds only the conv form
-    the packed kernels ``d_kern``/``f0_kern``/``f1_kern``, turned back into
-    torus lines (unflip, combine the limbs, ``fblock.build_sel``); the
-    public and shared keys from ``pk_kern``/``sk_kern``; ``ks_mats``."""
+                          device=None, forms=("fb",)) -> CCSCloudKey:
+    """The cloud key in ``forms`` from the JAX package's ``CCSCloudKey``
+    fields as numpy arrays (a key file's, or ``np.asarray`` of each field).
+    Each form's fields are taken as they are where the key holds them
+    (``d_sel``/``f0_sel``/``f1_sel`` for fb, ``d_kern``/``f0_kern``/
+    ``f1_kern`` for conv), else built from the other form's torus values
+    (the packed kernels unflipped and their limbs combined, or the lines'
+    first halves, ``fblock.unbuild_sel``); the public and shared keys come
+    from ``pk_kern``/``sk_kern``, the tables from ``ks_mats``."""
+    forms = check_forms(forms)
     geom = ccs_fb_geometry(params, parties)
     bits = params.rlwe_bits
     unpack = lambda k: poly.unpack_kernels_host(k, bits, 1)[..., 0, :]  # (..., l, N)
-    sels = []
-    for name in ("d", "f0", "f1"):
-        sel = fields.get(f"{name}_sel")
-        if sel is None:
-            if fields.get(f"{name}_kern") is None:
-                raise ValueError(f"the key has neither {name}_sel nor {name}_kern")
-            sel = _lines(unpack(fields[f"{name}_kern"]), geom)
-        sels.append(np.asarray(sel, np.int8))
-    return _cloud_key(params, parties, sels, unpack(fields["pk_kern"]), unpack(fields["sk_kern"]),
-                      fields["ks_mats"], resolve_device(device))
+
+    def torus(name):
+        if fields.get(f"{name}_kern") is not None:
+            return unpack(fields[f"{name}_kern"])
+        if fields.get(f"{name}_sel") is not None:
+            return fblock.unbuild_sel(fields[f"{name}_sel"], geom)[:, :, 0, 0]
+        raise ValueError(f"the key has neither {name}_sel nor {name}_kern")
+
+    def form(suffix, build):
+        return [fields[f"{name}_{suffix}"] if fields.get(f"{name}_{suffix}") is not None
+                else build(torus(name)) for name in ("d", "f0", "f1")]
+
+    sels = form("sel", lambda t: _lines(t, geom)) if "fb" in forms else None
+    kerns = form("kern", lambda t: pack_l_to_1(t, bits)) if "conv" in forms else None
+    return _cloud_key(params, parties, sels, kerns, unpack(fields["pk_kern"]),
+                      unpack(fields["sk_kern"]), fields["ks_mats"], resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -254,11 +281,72 @@ def _contract(blocks: torch.Tensor, fstep: torch.Tensor, geom: fblock.FBlockGeom
     return out.reshape(lead + out.shape[1:])
 
 
-def uni_product(x: torch.Tensor, d_f: torch.Tensor, f_f: torch.Tensor, ck: CCSCloudKey,
-                party: int) -> torch.Tensor:
-    """UniProduct on a batched (B, P+1, N) accumulator delta x, against one
-    step's expanded d1 block ``d_f`` and f0|f1 blocks ``f_f`` (the pair
-    geometry), for the key bit of ``party``:
+def gadget_contract(x: torch.Tensor, packed: torch.Tensor, gp: TGswParams,
+                    out_polys: int) -> torch.Tensor:
+    """sum_l g(x)_l (*) kern_{l,c} for each input poly: x (..., N) torus,
+    packed (C * L, l, N) int8 (C kernels side by side) -> (..., C, N). The
+    digit limb blocks are stacked along the batch of one product and their
+    results shifted by 8m; kernels side by side share the digit side's
+    Toeplitz rows. Integer sums: the words of one contraction per kernel
+    and block (the JAX package's ``_gadget_contract`` of each)."""
+    lead, N = x.shape[:-1], x.shape[-1]
+    blocks = _digit_blocks(x, gp)
+    nl = blocks.shape[0]
+    prod = poly.negacyclic_extern_product(blocks.reshape(-1, gp.decomp_length, N), packed,
+                                          gp.bits, out_polys)
+    prod = prod.reshape((nl, -1, out_polys, N))
+    total = prod[0]
+    for m in range(1, nl):
+        total = total + (prod[m] << (8 * m))
+    return total.reshape(lead + (out_polys, N))
+
+
+def uni_product(x: torch.Tensor, d_k: torch.Tensor, f0_k: torch.Tensor, f1_k: torch.Tensor,
+                pk_kern: torch.Tensor, sk_kern: torch.Tensor, onehot: torch.Tensor,
+                gp: TGswParams) -> torch.Tensor:
+    """UniProduct on the conv form: a batched (B, P+1, N) accumulator delta
+    x against one step's packed d1/f0/f1 kernels (L, l, N), the packed
+    public keys (P, L, l, N) and shared key (L, l, N); ``onehot`` (P,) the
+    owning party:
+
+        u   = <g(x_i), d1>            every mask and the body
+        v_i = <g(x_i), b_i>           party public keys, i < P
+        v_P = -<g(x_P), a>            shared key
+        w0, w1 = sum_j <g(v_j), f0>, <g(v_j), f1>
+        out = u; out[party] += w1; out[P] += w0
+
+    d1, the public keys and the shared key sit side by side against the
+    digits of x (one product), f0 and f1 against those of v."""
+    P = x.shape[1] - 1
+    c = gadget_contract(x, torch.cat([d_k, pk_kern.flatten(0, 1), sk_kern]), gp, P + 2)
+    u = c[:, :, 0]  # (B, P+1, N)
+    v = torch.stack([c[:, p, p + 1] for p in range(P)] + [-c[:, P, P + 1]], dim=1)
+    w = gadget_contract(v, torch.cat([f0_k, f1_k]), gp, 2).sum(1, dtype=x.dtype)  # (B, 2, N)
+    u[:, :P] += onehot.to(device=x.device, dtype=x.dtype)[None, :, None] * w[:, None, 1]
+    u[:, P] += w[:, 0]
+    return u
+
+
+def ccs_blind_rotate(acc: torch.Tensor, ck: CCSCloudKey, bara: torch.Tensor) -> torch.Tensor:
+    """The party-sequential CMux chain over the conv form, a step at a time:
+    ACC += UniProduct((X^bara - 1) * ACC) against step s's packed kernels.
+    acc: (B, P+1, N) int32; bara: (B, P*n) int32, party-major."""
+    gp = ck.params.tgsw
+    n, P = ck.params.lwe_size, ck.parties
+    onehots = torch.eye(P, dtype=acc.dtype, device=acc.device)
+    for s in range(ck.d_kern.shape[0]):
+        x = poly.mul_by_monomial(acc, bara[:, s]) - acc
+        acc = acc + uni_product(x, ck.d_kern[s], ck.f0_kern[s], ck.f1_kern[s], ck.pk_kern,
+                                ck.sk_kern, onehots[s // n], gp)
+    return acc
+
+
+def uni_product_fb(x: torch.Tensor, d_f: torch.Tensor, f_f: torch.Tensor, ck: CCSCloudKey,
+                   party: int) -> torch.Tensor:
+    """UniProduct on the fb form: a batched (B, P+1, N) accumulator delta x,
+    against one step's expanded d1 block ``d_f`` and f0|f1 blocks ``f_f``
+    (the pair geometry), for the key bit of ``party`` (``uni_product``'s
+    terms):
 
         u   = <g(x_i), d1>            every mask and the body
         v_i = <g(x_i), b_i>           party public keys, i < P
@@ -302,7 +390,7 @@ def ccs_blind_rotate_fb(acc: torch.Tensor, ck: CCSCloudKey, bara: torch.Tensor,
         for i in range(d_c.shape[0]):
             s = s0 + i
             x = poly.mul_by_monomial(acc, bara[:, s]) - acc
-            acc = acc + uni_product(x, d_c[i], f_c[i], ck, s // n)
+            acc = acc + uni_product_fb(x, d_c[i], f_c[i], ck, s // n)
         del d_c, f_c
     return acc
 
@@ -362,11 +450,19 @@ def rotate_input(mu: int, x: MKLweSample, N: int, parties: int, dtype: torch.dty
 def mk_bootstrap_wo_keyswitch(ck: CCSCloudKey, mu: int, x: MKLweSample,
                               chunk: int = 64) -> MKLweSample:
     """Mod-switch and blind-rotate the [mu..mu] test vector through all
-    parties' steps, then extract. Any leading batch shape."""
+    parties' steps, then extract. Any leading batch shape. A key with the
+    fb lines takes the fb route, else the conv route (``ccs_blind_rotate``),
+    as in the JAX package."""
     lead = tuple(x.b.shape)
     acc, bara = rotate_input(mu, x, ck.params.rlwe_polynomial_degree, ck.parties,
                              ck.params.rlwe.torus_dtype)
-    u = mk_rlwe_extract_sample(ccs_blind_rotate_fb(acc, ck, bara.flatten(1), chunk))
+    if ck.d_sel is not None:
+        acc = ccs_blind_rotate_fb(acc, ck, bara.flatten(1), chunk)
+    elif ck.d_kern is not None:
+        acc = ccs_blind_rotate(acc, ck, bara.flatten(1))
+    else:
+        raise ValueError("the cloud key holds neither the fb nor the conv form")
+    u = mk_rlwe_extract_sample(acc)
     return MKLweSample(u.a.reshape(lead + u.a.shape[-2:]), u.b.reshape(lead))
 
 

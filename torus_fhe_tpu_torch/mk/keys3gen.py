@@ -51,14 +51,16 @@ EXPANDED_KEY_LIMIT = 10 * 2**30  # largest expanded F-block key default_forms pi
 
 
 class CRP(NamedTuple):
-    """Common random polynomials: one uniform 64-bit torus poly, repeated l
-    times (the JAX package's default, ``a_same=True``)."""
+    """Common random polynomials: l uniform torus polys, or with ``a_same``
+    (the default, as in the JAX package) one poly repeated l times."""
 
     a: torch.Tensor  # (l, N) int64
 
 
-def gen_crp(generator: torch.Generator, params: SchemeParams3Gen) -> CRP:
+def gen_crp(generator: torch.Generator, params: SchemeParams3Gen, a_same: bool = True) -> CRP:
     l, N = params.gsw_decomp_length, params.rlwe_polynomial_degree
+    if not a_same:
+        return CRP(rng.uniform_torus(generator, (l, N), params.rlwe.torus_dtype))
     one = rng.uniform_torus(generator, (1, N), params.rlwe.torus_dtype)
     return CRP(one.expand(l, N).clone())
 

@@ -13,18 +13,20 @@ test vector as a plain RLWE sample instead and enter the accumulator through
 one uni-product.
 
 The torus is 64 bits throughout the ring (N = 2048, digits up to 2^13),
-so the rotates are the exact 64-bit torch-op scan over the compact lines of
-the TGSW samples (ops/fblock.blind_rotate_streamed, 16 limb columns, digits
-split into int8 limb blocks), as the JAX package runs them outside Pallas.
+so the rotates are exact 64-bit torch-op scans, as the JAX package runs
+them outside Pallas, over one of two forms of the TGSW samples (``forms``):
+``"fb"``, this package's default, their compact lines
+(ops/fblock.blind_rotate_streamed, 16 limb columns, digits split into int8
+limb blocks); ``"conv"``, the JAX package's default, their packed kernels
+``gsw_kern``, a step at a time through boot/bootstrap.mux_rotate (the TGSW
+external product). The rotates take the lines when the key has them.
 The uni-products contract gadget digits against the packed kernels of the
 uni-encryption, the public keys and the shared key through the exact
 digit-side Toeplitz product (ops/poly.negacyclic_extern_product); the TLev
 product contracts them against the TLev sample itself, a runtime kernel
 (ops/poly.pack_kernels_traced, negacyclic_extern_product_batched_kernels_multirow).
 Keygen products run on the host in exact numpy; the key moves to ``device``
-(None: the card; ``"cpu"``: the CPU). The JAX ``"conv"`` form (packed
-per-step TGSW kernels) is not carried: a request for it builds the F-block
-lines, and a key file that holds only it is turned into lines on load.
+(None: the card; ``"cpu"``: the CPU).
 """
 
 from __future__ import annotations
@@ -35,16 +37,17 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..boot.bootstrap import mux_rotate
 from ..boot.keyswitch import keyswitch_keygen, pad_table
 from ..core import rng
 from ..core.device import resolve_device
 from ..core.params import SchemeParamsKMS, TGswParams
 from ..lwe import LweKey, lwe_keygen
 from ..ops import fblock, hostmath, poly
-from ..rlwe import RLweKey, extract_lwe_key, rlwe_keygen
-from ..tgsw import tgsw_encrypt
-from .ccs import (MU, check_forms, k_major, mk_keyswitch, mk_rlwe_extract_sample,
-                  pack_l_to_1, rotate_input)
+from ..rlwe import RLweKey, RLweSample, extract_lwe_key, rlwe_keygen
+from ..tgsw import TGswSample, pack_tgsw, tgsw_encrypt
+from .ccs import (MU, check_forms, gadget_contract, k_major, mk_keyswitch,
+                  mk_rlwe_extract_sample, pack_l_to_1, rotate_input)
 from .samples import MKLweSample, mk_lwe_noiseless_trivial
 
 MU64 = 1 << 61  # encode_message(1, 8) on the 64-bit torus
@@ -90,13 +93,14 @@ def uni_encrypt_poly(generator: torch.Generator, message_poly, alpha: float,
 
 @dataclass
 class KMSCloudKey:
-    """The KMS cloud key in its F-block form, field names as the JAX
-    package's ``KMSCloudKey``.
+    """The KMS cloud key, field names as the JAX package's ``KMSCloudKey``.
 
-    ``gsw_sel``: (P*n, 2*l_gsw, 2N, 16) int8, the compact lines of each
-    party's TGSW encryptions of its LWE key bits under z_p, party-major
-    (``fblock.build_sel`` layout on every device; the scan expands a chunk
-    at a time). ``d_kern``, ``f0_kern``, ``f1_kern``: (P, 8, l_uni, N) int8,
+    ``gsw_sel`` (the fb form): (P*n, 2*l_gsw, 2N, 16) int8, the compact
+    lines of each party's TGSW encryptions of its LWE key bits under z_p,
+    party-major (``fblock.build_sel`` layout on every device; the scan
+    expands a chunk at a time). ``gsw_kern`` (the conv form): (P*n, 16,
+    2*l_gsw, N) int8, the same samples packed (``tgsw.pack_tgsw``).
+    ``d_kern``, ``f0_kern``, ``f1_kern``: (P, 8, l_uni, N) int8,
     the packed uni-encryption of each z_p; ``pk_kern`` (P, 8, l_uni, N) and
     ``sk_kern`` (8, l_uni, N): the packed public keys and shared key
     (``poly.pack_kernels_host``; their rows are K-contiguous as they lie).
@@ -112,7 +116,8 @@ class KMSCloudKey:
     ks_mats: torch.Tensor
     parties: int
     params: SchemeParamsKMS
-    gsw_sel: torch.Tensor
+    gsw_sel: torch.Tensor | None = None
+    gsw_kern: torch.Tensor | None = None
 
 
 def kms_fb_geometry(params: SchemeParamsKMS, n_steps: int) -> fblock.FBlockGeometry:
@@ -122,27 +127,29 @@ def kms_fb_geometry(params: SchemeParamsKMS, n_steps: int) -> fblock.FBlockGeome
                                   params.gsw_decomp_length, params.rlwe_bits, 0)
 
 
-def _cloud_key(params: SchemeParamsKMS, parties: int, gsw_sel: np.ndarray, kerns,
+def _cloud_key(params: SchemeParamsKMS, parties: int, gsw_sel, gsw_kern, kerns,
                ks_mats: np.ndarray, device) -> KMSCloudKey:
-    """Place the key on ``device``: ``kerns`` the packed d, f0, f1, pk, sk
-    kernels, ``ks_mats`` (P, K, (n+1)*4) int8."""
-    on = lambda a: torch.tensor(np.asarray(a, np.int8), device=device)
+    """Place the key on ``device``: ``gsw_sel`` the TGSW lines (fb form) and
+    ``gsw_kern`` their packed kernels (conv form), either None without its
+    form; ``kerns`` the packed d, f0, f1, pk, sk kernels; ``ks_mats``
+    (P, K, (n+1)*4) int8."""
+    on = lambda a: None if a is None else torch.tensor(np.asarray(a, np.int8), device=device)
     mats = pad_table(torch.tensor(np.asarray(ks_mats, np.int8)).flatten(0, 1))
     return KMSCloudKey(*(on(k) for k in kerns),
                        k_major(mats.reshape(parties, -1, mats.shape[1]).to(device)),
-                       parties, params, on(gsw_sel))
+                       parties, params, on(gsw_sel), on(gsw_kern))
 
 
 def kms_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[KMSSecretKey],
                      params: SchemeParamsKMS, device=None, forms=("fb",)) -> KMSCloudKey:
     """The KMS cloud-key pipeline: shared key, then per party a throwaway
     key z_p, the TGSW of the LWE key bits under it, the public key, the
-    uni-encryption of z_p, and the keyswitch key. ``forms``: the F-block
-    form ("fb"; the JAX package's "conv" is read as it)."""
+    uni-encryption of z_p, and the keyswitch key. ``forms``: "fb" (the
+    default) and/or "conv", both from the one keygen."""
     parties = len(secret_keys)
     if parties > params.max_parties:
         raise ValueError(f"{parties} parties, the set serves {params.max_parties}")
-    check_forms(forms)
+    forms = check_forms(forms)
     device = resolve_device(device)
     bits, uni = params.rlwe_bits, params.uni
     dtype = params.rlwe.torus_dtype
@@ -150,12 +157,12 @@ def kms_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[KMSSecret
     shared = rng.uniform_torus(generator, (uni.decomp_length, params.rlwe_polynomial_degree),
                                dtype).cpu().numpy()
     cols = (params.lwe_size + 1) * 4
-    gsw, unis, pubs, mats = [], [], [], []
+    gsw, unis, pubs, mats = [], [], [], []  # gsw: the raw samples (n, l, 2, 2, N) a party
     for sk in secret_keys:
         z = rlwe_keygen(generator, params.rlwe, negative=False)
         samples = tgsw_encrypt(generator, sk.lwe.key, params.gsw_noise_stddev, z, params.tgsw,
                                params.rlwe).samples
-        gsw.append(fblock.build_sel(samples.numpy(), geom))
+        gsw.append(samples.numpy())
         noise = rng.gaussian_torus(generator, 0, params.uni_noise_stddev, shared.shape, dtype)
         with np.errstate(over="ignore"):
             pubs.append(hostmath.negacyclic_polymul_host(sk.rlwe.key[0].cpu().numpy(), shared,
@@ -166,28 +173,48 @@ def kms_cloud_keygen(generator: torch.Generator, secret_keys: Sequence[KMSSecret
                                      extract_lwe_key(sk.rlwe), device="cpu").mat[:, :cols].numpy())
     kerns = [pack_l_to_1(np.stack([u[i] for u in unis]), bits) for i in range(3)]
     kerns += [pack_l_to_1(np.stack(pubs), bits), pack_l_to_1(shared, bits)]
-    return _cloud_key(params, parties, np.concatenate(gsw), kerns, np.stack(mats), device)
+    samples = np.concatenate(gsw)
+    return _cloud_key(params, parties, fblock.build_sel(samples, geom) if "fb" in forms else None,
+                      _pack_gsw(samples, params) if "conv" in forms else None, kerns,
+                      np.stack(mats), device)
+
+
+def _pack_gsw(samples: np.ndarray, params: SchemeParamsKMS) -> np.ndarray:
+    """The conv form of raw TGSW samples (M, l, 2, 2, N): (M, 16, 2*l, N)."""
+    return pack_tgsw(TGswSample(torch.from_numpy(samples)), params.tgsw).kernels.numpy()
 
 
 def cloud_key_from_fields(params: SchemeParamsKMS, parties: int, fields: dict,
-                          device=None) -> KMSCloudKey:
-    """The cloud key from the JAX package's ``KMSCloudKey`` fields as numpy
-    arrays (a key file's, or ``np.asarray`` of each field): the lines
-    ``gsw_sel``, or where a key holds only the conv form the packed TGSW
-    kernels ``gsw_kern`` turned back into the raw samples (unflip, combine
-    the limbs) and their lines (``fblock.build_sel``); the packed uni,
-    public and shared kernels and ``ks_mats`` as they are."""
-    sel = fields.get("gsw_sel")
-    if sel is None:
-        if fields.get("gsw_kern") is None:
-            raise ValueError("the key has neither gsw_sel nor gsw_kern")
-        l, N = params.gsw_decomp_length, params.rlwe_polynomial_degree
-        C = params.rlwe_mask_size + 1
-        samples = poly.unpack_kernels_host(fields["gsw_kern"], params.rlwe_bits, C)
-        sel = fblock.build_sel(samples.reshape(-1, l, C, C, N),
-                               kms_fb_geometry(params, params.lwe_size))
+                          device=None, forms=("fb",)) -> KMSCloudKey:
+    """The cloud key in ``forms`` from the JAX package's ``KMSCloudKey``
+    fields as numpy arrays (a key file's, or ``np.asarray`` of each field):
+    ``gsw_sel`` (fb) and ``gsw_kern`` (conv) taken as they are where the
+    key holds them, else built from the raw samples of the other (the
+    packed kernels unflipped and their limbs combined, or the lines' first
+    halves, ``fblock.unbuild_sel``); the packed uni, public and shared
+    kernels and ``ks_mats`` as they are."""
+    forms = check_forms(forms)
+    geom = kms_fb_geometry(params, params.lwe_size)
+    l, N, C = params.gsw_decomp_length, params.rlwe_polynomial_degree, params.rlwe_mask_size + 1
+
+    def samples():
+        if fields.get("gsw_kern") is not None:
+            raw = poly.unpack_kernels_host(fields["gsw_kern"], params.rlwe_bits, C)
+            return raw.reshape(-1, l, C, C, N)
+        if fields.get("gsw_sel") is not None:
+            return fblock.unbuild_sel(fields["gsw_sel"], geom)
+        raise ValueError("the key has neither gsw_sel nor gsw_kern")
+
+    sel = kern = None
+    if "fb" in forms:
+        sel = fields.get("gsw_sel")
+        sel = fblock.build_sel(samples(), geom) if sel is None else sel
+    if "conv" in forms:
+        kern = fields.get("gsw_kern")
+        kern = _pack_gsw(samples(), params) if kern is None else kern
     kerns = [fields[f"{name}_kern"] for name in ("d", "f0", "f1", "pk", "sk")]
-    return _cloud_key(params, parties, sel, kerns, fields["ks_mats"], resolve_device(device))
+    return _cloud_key(params, parties, sel, kern, kerns, fields["ks_mats"],
+                      resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -234,27 +261,6 @@ def tlev_extern_mul(c: torch.Tensor, lev: torch.Tensor, params: SchemeParamsKMS)
     return total
 
 
-def gadget_contract(x: torch.Tensor, packed: torch.Tensor, gp: TGswParams,
-                    out_polys: int) -> torch.Tensor:
-    """sum_l g(x)_l (*) kern_{l,c} for each input poly: x (..., N) torus,
-    packed (C * L, l, N) int8 (C kernels side by side) -> (..., C, N). The
-    digit limb blocks are stacked along the batch of one product and their
-    results shifted by 8m; kernels side by side share the digit side's
-    Toeplitz rows. Integer sums: the words of one contraction per kernel
-    and block."""
-    lead, N = x.shape[:-1], x.shape[-1]
-    digits = poly.decompose(x, gp.decomp_length, gp.log2_base, gp.bits, gp.offset)
-    blocks = fblock.stack_blocks(poly.digits_to_i8_rows(digits, gp.log2_base))
-    nl = blocks.shape[0]
-    prod = poly.negacyclic_extern_product(blocks.reshape(-1, gp.decomp_length, N), packed,
-                                          gp.bits, out_polys)
-    prod = prod.reshape((nl, -1, out_polys, N))
-    total = prod[0]
-    for m in range(1, nl):
-        total = total + (prod[m] << (8 * m))
-    return total.reshape(lead + (out_polys, N))
-
-
 def uni_product_new(x: torch.Tensor, ck: KMSCloudKey, party: int) -> torch.Tensor:
     """The relinearisation's hybrid product on a (B, P+1, N) operand for
     party ``party``'s uni-encryption:
@@ -278,6 +284,26 @@ def uni_product_new(x: torch.Tensor, ck: KMSCloudKey, party: int) -> torch.Tenso
     return u
 
 
+def _gsw_rotate(acc: torch.Tensor, ck: KMSCloudKey, party: int, bara_p: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """The single-key CMux chain of party ``party``'s n TGSW steps on RLWE
+    rows acc (rows, 2, N), bara_p (rows, n): over the lines when the key has
+    them (the streamed F-block scan, ``chunk`` steps expanded at a time),
+    else over the packed kernels a step at a time (``mux_rotate``)."""
+    params, n = ck.params, ck.params.lwe_size
+    if ck.gsw_sel is not None:
+        gp = params.tgsw
+        return fblock.blind_rotate_streamed(acc, ck.gsw_sel[party * n:(party + 1) * n], bara_p,
+                                            kms_fb_geometry(params, n), gp.decomp_length,
+                                            gp.log2_base, gp.offset, chunk=chunk)
+    if ck.gsw_kern is None:
+        raise ValueError("the cloud key holds neither the fb nor the conv form")
+    rows = RLweSample(acc)
+    for i in range(n):
+        rows = mux_rotate(rows, ck.gsw_kern[party * n + i], bara_p[:, i], params)
+    return rows.a
+
+
 def _lev_blind_rotate(ck: KMSCloudKey, party: int, bara_p: torch.Tensor,
                       chunk: int) -> torch.Tensor:
     """Party ``party``'s TLev blind rotate: the single-key CMux chain over its
@@ -286,11 +312,8 @@ def _lev_blind_rotate(ck: KMSCloudKey, party: int, bara_p: torch.Tensor,
     params, n = ck.params, ck.params.lwe_size
     B, llev, N = bara_p.shape[0], params.lev_decomp_length, params.rlwe_polynomial_degree
     lev = tlev_trivial_one(B, params, bara_p.device).reshape(B * llev, 2, N)
-    gp = params.tgsw
-    acc = fblock.blind_rotate_streamed(
-        lev, ck.gsw_sel[party * n:(party + 1) * n],
-        bara_p[:, None].expand(B, llev, n).reshape(B * llev, n), kms_fb_geometry(params, n),
-        gp.decomp_length, gp.log2_base, gp.offset, chunk=chunk)
+    acc = _gsw_rotate(lev, ck, party, bara_p[:, None].expand(B, llev, n).reshape(B * llev, n),
+                      chunk)
     return acc.reshape(B, llev, 2, N)
 
 
@@ -310,15 +333,11 @@ def kms_blind_rotate(acc: torch.Tensor, ck: KMSCloudKey, bara: torch.Tensor,
     test vector in the body; bara: (B, P, n) int32. ``fast_boot``: party 0
     rotates the test vector as a single-key RLWE sample under its TGSW key
     and enters through one uni-product (no TLev phase for it)."""
-    params, P = ck.params, ck.parties
-    n, B = params.lwe_size, acc.shape[0]
+    P = ck.parties
     start = 0
     if fast_boot:
-        gp = params.tgsw
         sacc = torch.stack([torch.zeros_like(acc[:, P]), acc[:, P]], dim=1)
-        sacc = fblock.blind_rotate_streamed(sacc, ck.gsw_sel[:n], bara[:, 0],
-                                            kms_fb_geometry(params, n), gp.decomp_length,
-                                            gp.log2_base, gp.offset, chunk=chunk)
+        sacc = _gsw_rotate(sacc, ck, 0, bara[:, 0], chunk)
         e, f = torch.zeros_like(acc), torch.zeros_like(acc)
         e[:, P], f[:, P] = sacc[:, 0], sacc[:, 1]
         acc = f - uni_product_new(e, ck, 0)

@@ -112,6 +112,25 @@ def build_sel(samples: np.ndarray, geom: FBlockGeometry) -> np.ndarray:
     return np.ascontiguousarray(sel)
 
 
+def unbuild_sel(sel: np.ndarray, geom: FBlockGeometry) -> np.ndarray:
+    """The raw samples (n, l, C, C, N) torus ints of compact lines in
+    ``build_sel``'s layout (n, R, 2N, ncols): the inverse of ``build_sel``
+    for a geometry that keeps every limb column (no dropped limb). The first
+    N entries of each line are the kernel itself, limb column (p, s)
+    holding limb s/8 of its output poly p."""
+    sel = np.asarray(sel)
+    n = sel.shape[0]
+    nl = poly.n_limbs_for(geom.bits)
+    if len(geom.cols) != geom.C * nl or sel.shape[1:] != (geom.R, 2 * geom.N, len(geom.cols)):
+        raise ValueError(f"lines {sel.shape} of {geom}: want every limb column kept")
+    kern = np.zeros((n, geom.R, geom.C, geom.N), np.int64)
+    with np.errstate(over="ignore"):
+        for ci, (p, s) in enumerate(geom.cols):
+            kern[:, :, p] += sel[:, :, :geom.N, ci].astype(np.int64) << np.int64(s)
+    kern = kern.astype(np.int32 if geom.bits <= 32 else np.int64)
+    return kern.reshape(n, geom.R // geom.C, geom.C, geom.C, geom.N)
+
+
 def _extended_line_limbs(samples: np.ndarray, geom: FBlockGeometry,
                          reverse: bool = False) -> np.ndarray:
     """The extended lines [k, -k] of raw samples (n, l, C, C, N), negated in

@@ -2,12 +2,13 @@
 decomposition, an exact schoolbook oracle, the limb FFT product of huge
 rings, the exact int8 matrix product and the packing contraction.
 
-Port of torus_fhe_tpu/ops/poly.py without its XLA conv backend and its
-single-row batched-kernel product (no caller): what the F-block blind rotate
-(digits of any width, 32- and 64-bit torus), the keyswitch, threshold
-decryption, LWE -> RLWE packing and the CCS and KMS multikey products use.
-torch has no uint32 arithmetic, so the limb split works on the unsigned
-residue held in int64.
+Port of torus_fhe_tpu/ops/poly.py. Its two XLA lowerings of the packed
+product (the conv backend and the circulant matmul, chosen by
+``set_backend``) become one exact int8 product here: the digit side's
+Toeplitz rows against the packed kernels (``negacyclic_extern_product``),
+which the TGSW external product of the scan route, LWE -> RLWE packing and
+the CCS and KMS multikey products use. torch has no uint32 arithmetic, so
+the limb split works on the unsigned residue held in int64.
 """
 
 from __future__ import annotations
@@ -248,16 +249,18 @@ int8_matmul.calls = 0
 # ---------------------------------------------------------------------------
 
 
-def pack_kernels_host(kernels: np.ndarray, bits: int) -> np.ndarray:
+def pack_kernels_host(kernels: np.ndarray, bits: int, drop_limbs: int = 0) -> np.ndarray:
     """Torus kernels as int8 limbs, in the JAX package's layout.
 
     kernels: (..., R, C, N) torus ints (numpy). Returns int8 of shape
-    (..., C * n_limbs, R, N) with the window axis FLIPPED: row c * L + m
-    holds limb m of kernel[r, c] at position N - 1 - t.
-    ``negacyclic_extern_product`` reads this layout (the flip lets it form
-    the digit side's Toeplitz rows as windows of one padded sequence).
+    (..., C * (n_limbs - drop_limbs), R, N) with the window axis FLIPPED: row
+    c * L' + m holds limb drop_limbs + m of kernel[r, c] at position
+    N - 1 - t. ``negacyclic_extern_product`` reads this layout (the flip lets
+    it form the digit side's Toeplitz rows as windows of one padded
+    sequence). ``drop_limbs`` drops the lowest limbs of every kernel (the
+    product then takes ``limb_offset=drop_limbs``).
     """
-    limbs = limb_split_signed_host(kernels, bits)  # (..., R, C, N, L)
+    limbs = limb_split_signed_host(kernels, bits)[..., drop_limbs:]  # (..., R, C, N, L')
     limbs = np.moveaxis(limbs, -1, -2)[..., ::-1]  # (..., R, C, L, N), window flipped
     limbs = np.moveaxis(limbs, -4, -2)  # (..., C, L, R, N)
     shape = limbs.shape
@@ -345,27 +348,57 @@ def _folded_products(digits: torch.Tensor, packed: torch.Tensor,
     return torch.cat(out)
 
 
-def negacyclic_extern_product(digits: torch.Tensor, packed: torch.Tensor, bits: int,
-                              out_polys: int) -> torch.Tensor:
-    """out[b, c] = sum_r digits[b, r] (*) kernels[r, c], negacyclic and exact.
+def _combine_limbs(folded: torch.Tensor, out_polys: int, limb_offset: int) -> torch.Tensor:
+    """Folded limb products (B, C * L', N) -> (B, C, N) torus ints: limb m
+    shifted by 8 * (m + limb_offset), summed in the torus dtype."""
+    B, _, N = folded.shape
+    L = folded.shape[1] // out_polys
+    folded = folded.reshape(B, out_polys, L, N)
+    out = torch.zeros((B, out_polys, N), dtype=folded.dtype, device=folded.device)
+    for m in range(L):
+        out = out + (folded[:, :, m] << (8 * (m + limb_offset)))
+    return out
 
-    digits: (B, R, N) int8; packed: (C * L, R, N) int8 from
-    ``pack_kernels_host`` (L = n_limbs(bits)), on digits' device. Returns
-    (B, C, N) torus ints (int32 for 32 bits, int64 for 64): the limb
-    products of ``_folded_products`` in the torus dtype, each shifted by 8m.
-    """
-    B, R, N = digits.shape
-    CL = packed.shape[0]
-    L = n_limbs_for(bits)
-    if CL % L or packed.shape[1:] != (R, N) or N % 8:
+
+def _check_packed(digits: torch.Tensor, packed: torch.Tensor, bits: int, out_polys: int,
+                  limb_offset: int) -> None:
+    R, N = digits.shape[-2:]
+    L = n_limbs_for(bits) - limb_offset
+    if packed.shape[-3] != out_polys * L or packed.shape[-2:] != (R, N) or N % 8:
         raise ValueError(f"packed {tuple(packed.shape)} against digits {tuple(digits.shape)}, "
                          f"{L} limbs: want ({out_polys} * {L}, {R}, {N}) and N a multiple of 8")
+
+
+def negacyclic_extern_product(digits: torch.Tensor, packed: torch.Tensor, bits: int,
+                              out_polys: int, limb_offset: int = 0) -> torch.Tensor:
+    """out[b, c] = sum_r digits[b, r] (*) kernels[r, c], negacyclic and exact.
+
+    digits: (B, R, N) int8; packed: (C * (n_limbs(bits) - limb_offset), R, N)
+    int8 from ``pack_kernels_host`` (``limb_offset`` its ``drop_limbs``), on
+    digits' device. Returns (B, C, N) torus ints (int32 for 32 bits, int64
+    for 64): the limb products of ``_folded_products`` in the torus dtype,
+    limb m shifted by 8 * (m + limb_offset).
+    """
+    _check_packed(digits, packed, bits, out_polys, limb_offset)
     dtype = torch.int32 if bits <= 32 else torch.int64
-    folded = _folded_products(digits, packed, dtype).reshape(B, out_polys, L, N)
-    out = torch.zeros((B, out_polys, N), dtype=dtype, device=digits.device)
-    for m in range(L):
-        out = out + (folded[:, :, m] << (8 * m))
-    return out
+    return _combine_limbs(_folded_products(digits, packed, dtype), out_polys, limb_offset)
+
+
+def negacyclic_extern_product_batched_kernels(digits: torch.Tensor, packed: torch.Tensor,
+                                              bits: int, out_polys: int) -> torch.Tensor:
+    """Per-element kernels: out[b, c] = sum_r digits[b, r] (*) k[b, r, c],
+    exact. digits: (B, R, N) int8; packed: (B, C * L, R, N) int8 from
+    ``pack_kernels_traced``. Returns (B, C, N) torus ints, the contract of
+    ``negacyclic_extern_product`` with a kernel an element (one
+    ``_folded_products`` each: ``torch._int_mm`` is 2-D only). The limb sums
+    run in the torus dtype, as ``negacyclic_extern_product``'s do."""
+    if packed.shape[0] != digits.shape[0]:
+        raise ValueError(f"packed {tuple(packed.shape)} against digits {tuple(digits.shape)}")
+    _check_packed(digits, packed, bits, out_polys, 0)
+    dtype = torch.int32 if bits <= 32 else torch.int64
+    folded = torch.cat([_folded_products(digits[b:b + 1], packed[b], dtype)
+                        for b in range(digits.shape[0])])
+    return _combine_limbs(folded, out_polys, 0)
 
 
 def negacyclic_extern_product_batched_kernels_multirow(rows: torch.Tensor,

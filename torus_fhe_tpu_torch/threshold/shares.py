@@ -5,7 +5,8 @@ over all C(p, t) groups of the AND of the group's t parties; its distribution
 matrix M is block-structured, and the shares are the integer product
 S = M · ρ. ``share_secret`` builds M and ρ and takes the product;
 ``share_secret_streaming`` draws each group's random blocks and forms the
-shares without M.
+shares without M, through the host native runtime (ops/native.py) for
+t > 1 where it is available, as the JAX package does.
 
 Within a group (sorted party ids p_1 < ... < p_t), party p_1 holds
 s + Σ_j r_j and party p_{i+1} holds r_{t-1-i}; the key reconstructs as
@@ -23,6 +24,8 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..ops import native
 
 
 def ncr(n: int, r: int) -> int:
@@ -159,6 +162,12 @@ def share_secret_streaming(key, t: int, p: int, generator: torch.Generator,
     groups = list(range(1, ncr(p, t) + 1) if groups is None else groups)
     blocks = _bits(generator, (len(groups), max(t - 1, 1), k, N))  # r_0..r_{t-2}
     repo = ShareSet(t, p)
+    if t > 1 and native.available():
+        shares = native.bl_shares_stream(key, blocks[:, :t - 1])  # (G, t, k, N)
+        for idx, g in enumerate(groups):
+            for i, party in enumerate(find_parties(g, t, p)):
+                repo.shares[(party, g)] = shares[idx, i]
+        return repo
     for idx, g in enumerate(groups):
         parties = find_parties(g, t, p)
         repo.shares[(parties[0], g)] = key + blocks[idx, :t - 1].sum(0, dtype=np.int32)

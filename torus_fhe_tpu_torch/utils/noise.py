@@ -209,7 +209,9 @@ def report_single_key(sk, ck, msgs: torch.Tensor, ct, true_ct) -> NoiseReport:
     classes = _next_gate_classes(out, gates.gate_and(ck, true_ct, true_ct),
                                  lambda x: lwe_phase(x, sk.key), want, wrong,
                                  ck.params.rlwe_polynomial_degree)
-    return _report(fresh, boot, wrong, ck.bootstrap_key.fb.nbytes, ck.keyswitch_key.mat.nbytes,
+    bk = ck.bootstrap_key
+    bk_bytes = (bk.kernels if bk.kernels is not None else bk.fb).nbytes
+    return _report(fresh, boot, wrong, bk_bytes, ck.keyswitch_key.mat.nbytes,
                    wall, classes)
 
 

@@ -31,7 +31,9 @@ from ..core.device import resolve_device
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # the card's lanes
 HOST_CAT = "cpu_op"  # the host op lanes, counted when the trace has no device lane
-WARMUP_KERNELS = 8  # device_trace's opening launches on the card
+WARMUP_KERNELS = 64  # the guard launches on each side of a traced body on the card, at least
+GUARDS = ("device_trace.guard_before", "device_trace.guard_after")  # their host spans
+_guard = dict.fromkeys(GUARDS, 0)  # the guard launches the losses seen so far ask for
 
 
 @contextlib.contextmanager
@@ -40,31 +42,56 @@ def device_trace(logdir: str, device=None):
     kernels and copies unless ``device`` is the CPU; None is the card) and
     write its Chrome trace into ``logdir``. Yields ``logdir``.
 
-    On the card the trace opens with WARMUP_KERNELS launches of a one-word
-    add, each followed by a synchronize and a millisecond of idle card,
-    before the body. A session can lose the records of the device work of
-    its first moments; when a kernel that holds every SM (the rotate's
-    cooperative grid) runs in that span, the loss reaches to that kernel's
-    end and takes its record too. The adds take the loss in its place.
-    Their records, where they survive, count as elementwise work of a few
-    microseconds in the summary."""
-    from torch.profiler import ProfilerActivity, profile
+    On the card a session loses the records of its first device operations
+    and, now and then, of its last ones: a count of them that grows as the
+    process ages, not a span of time (tools/trace_probe.py on an H100: 0,
+    10, 20 and 30 lost at ages of 0, 130, 260 and 380 s of an 8-party AND
+    run again and again). A record lost there is lost whole, so a rotate kernel that
+    starts among those operations loses its record though it ends much
+    later. So the body runs between two guards, host spans named GUARDS,
+    each a run of one-word adds, each followed by a synchronize: the losses
+    fall on them. ``summarize_trace`` leaves their records out and says
+    whether the body's are intact (a record of each guard kept). A guard
+    that lost records makes the next trace's guard on that side twice the
+    loss (four times its launches when it lost them all)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     device = resolve_device(device)
     activities = [ProfilerActivity.CPU]
+    guards = dict.fromkeys(GUARDS, 0)
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+        if WARMUP_KERNELS:
+            guards = {g: max(WARMUP_KERNELS, _guard[g]) for g in GUARDS}
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        if device.type == "cuda" and WARMUP_KERNELS:
-            word = torch.zeros(1, dtype=torch.int32, device=device)
-            for _ in range(WARMUP_KERNELS):
+    word = torch.zeros(1, dtype=torch.int32, device=device) if any(guards.values()) else None
+
+    def guard(name):
+        with record_function(name):
+            for _ in range(guards[name]):
                 word.add_(1)
                 torch.cuda.synchronize(device)
-                time.sleep(1e-3)
+
+    with profile(activities=activities) as prof:
+        if word is not None:
+            guard(GUARDS[0])
         yield logdir
-    name = f"{uuid.uuid4().hex}.pt.trace.json.gz"
-    prof.export_chrome_trace(os.path.join(logdir, name))
+        if word is not None:
+            torch.cuda.synchronize(device)
+            guard(GUARDS[1])
+    path = os.path.join(logdir, f"{uuid.uuid4().hex}.pt.trace.json.gz")
+    prof.export_chrome_trace(path)
+    if word is not None:
+        learn(guard_records(_load(path)))
+
+
+def learn(records: dict) -> None:
+    """Grow the next traces' guards past the losses of one trace's guards,
+    {guard span name: (records kept, launches)}: twice the loss, or four
+    times the launches where none was kept."""
+    for name, (kept, launched) in records.items():
+        if kept < launched:
+            _guard[name] = max(_guard[name], 2 * (launched - kept) if kept else 4 * launched)
 
 
 @contextlib.contextmanager
@@ -136,6 +163,28 @@ def _self_times(events: list):
             stack.append([ts + dur, ev, dur])
 
 
+def _guard_correlations(events: list) -> dict:
+    """{guard span name: correlation ids of the host launch calls inside it}."""
+    spans = [(ev["name"], float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0)))
+             for ev in events if ev.get("cat") == "user_annotation" and ev.get("name") in GUARDS]
+    found = {name: set() for name, _, _ in spans}
+    for ev in events:
+        if ev.get("cat") == "cuda_runtime" and "Launch" in ev.get("name", ""):
+            ts = float(ev["ts"])
+            for name, start, end in spans:
+                if start <= ts <= end:
+                    found[name].add(ev.get("args", {}).get("correlation"))
+    return found
+
+
+def guard_records(events: list) -> dict:
+    """{guard span name: (device records kept, launches)} of device_trace's
+    guards among a trace's complete events, matched by correlation id."""
+    kept = {ev.get("args", {}).get("correlation") for ev in events
+            if ev.get("cat") in DEVICE_CATS}
+    return {name: (len(ids & kept), len(ids)) for name, ids in _guard_correlations(events).items()}
+
+
 def has_device_lanes(logdir: str) -> bool:
     """Whether the traces under ``logdir`` hold any event of the card's
     lanes, the events ``summarize_trace`` then counts."""
@@ -146,14 +195,27 @@ def has_device_lanes(logdir: str) -> bool:
 def summarize_trace(logdir: str, top: int = 15) -> dict:
     """Time by op name and by category over the traces under ``logdir``.
 
-    Returns {"total_device_us", "by_op": [(name, us, pct)], "by_category"}.
-    Counts the card's lanes only (events of category kernel, gpu_memcpy,
-    gpu_memset); a trace without them (a CPU run) counts its host op lanes
-    (cpu_op), nested spans by their own time."""
+    Returns {"total_device_us", "by_op": [(name, us, pct)], "by_category",
+    "intact"}. Counts the card's lanes only (events of category kernel,
+    gpu_memcpy, gpu_memset), less the records of device_trace's guards; a
+    trace without them (a CPU run) counts its host op lanes (cpu_op), nested
+    spans by their own time. ``intact``: whether every trace kept a record of
+    each of its guards, so lost none of the body's (None where no trace
+    has guards)."""
     files = _trace_files(logdir)
     if not files:
         raise FileNotFoundError(f"no .trace.json or .trace.json.gz under {logdir}")
-    events = [ev for path in files for ev in _load(path) if ev.get("ph") == "X"]
+    intact, guarded, events = True, False, []
+    for path in files:
+        trace = [ev for ev in _load(path) if ev.get("ph") == "X"]
+        ids = _guard_correlations(trace)
+        kept = {ev.get("args", {}).get("correlation") for ev in trace
+                if ev.get("cat") in DEVICE_CATS}
+        guarded |= bool(ids)
+        intact &= all(ids.get(g, set()) & kept for g in GUARDS) if ids else True
+        own = set().union(*ids.values())
+        events += [ev for ev in trace if ev.get("cat") not in DEVICE_CATS
+                   or ev.get("args", {}).get("correlation") not in own]
     device = [ev for ev in events if ev.get("cat") in DEVICE_CATS]
     if device:
         spans = ((ev.get("name", "?"), ev.get("cat", ""), float(ev.get("dur", 0.0)))
@@ -173,6 +235,7 @@ def summarize_trace(logdir: str, top: int = 15) -> dict:
                   for n, us in by_op],
         "by_category": {k: round(v, 1) for k, v in
                         sorted(by_cat.items(), key=lambda kv: -kv[1])},
+        "intact": intact if guarded else None,
     }
 
 

@@ -8,17 +8,20 @@ either positional (``leaf_i``, in the order the JAX package's pytree flatten
 gives: dict entries by sorted key) or named (``k_<name>``, optional fields
 left out).
 
-A cloud key is stored compact: the keyswitch table and the raw TGSW samples.
-The rotate's key form is rebuilt from the samples on load, on ``device``
-(None: the card, core/device.resolve_device; ``"cpu"``: the CPU). This
-package builds the F-block forms only: a single-key file that recorded the
-JAX package's ``conv`` form loads as ``fblock``; a 3gen file whose only form
-is ``conv`` loads as the exact key of the raw samples' lines
+A cloud key is stored compact: the keyswitch table and the raw TGSW samples,
+with the forms the key held (``conv``, ``fblock``), as the JAX package
+records them. The rotate's key forms are rebuilt from the samples on load,
+on ``device`` (None: the card, core/device.resolve_device; ``"cpu"``: the
+CPU): ``forms`` names them, and without it a single-key file loads in this
+package's default form, ``fblock``, whatever it recorded; a 3gen file whose
+only form is ``conv`` loads as the exact key of the raw samples' lines
 (mk/keys3gen.py), the exact chain JAX's conv scan runs; a legacy file that
-holds conv kernels and no samples cannot be loaded. The CCS and KMS cloud keys
-are stored by the JAX package's field names in its fb form; their files in
-the JAX conv form load too, the key lines rebuilt from the packed kernels.
-The keyswitch tables are
+holds conv kernels and no samples cannot be loaded. The CCS and KMS cloud
+keys are stored by the JAX package's field names, in the forms they hold
+(``fb`` lines, ``conv`` packed kernels); a file in either form loads in
+either (``forms``, default ``fb``), each form's fields taken as they are
+where the file holds them and rebuilt from the other's otherwise. The
+keyswitch tables are
 written without the zero columns this package pads them with
 (boot/keyswitch.pad_table), so that the JAX package reads them.
 """
@@ -36,8 +39,8 @@ from ..core.device import resolve_device
 
 _SCHEMA = "torus_fhe_tpu.v1"
 NO_SAMPLES = ("{path} holds the conv kernels of the JAX package's scan backend and no raw "
-              "samples (a legacy file): this package builds the F-block forms from the samples "
-              "and has no conv backend. Save the key again with its samples")
+              "samples (a legacy file): this package builds every form from the samples. Save "
+              "the key again with its samples")
 
 
 def _params_to_json(params) -> str:
@@ -160,29 +163,29 @@ def load_secret_key(path: str, device=None):
 
 def save_cloud_key(path: str, ck) -> None:
     """The compact cloud key: keyswitch table and raw TGSW samples (~20 MB at
-    the 128-bit sets). The F-block form is rebuilt from the samples on load."""
+    the 128-bit sets), with the forms the key holds; each is rebuilt from
+    the samples on load."""
     ks, bk = ck.keyswitch_key, ck.bootstrap_key
+    forms = [f for f, v in (("conv", bk.kernels), ("fblock", bk.fb)) if v is not None]
     save_named(path, "cloud_key",
                {"ks": ks.mat[:, :(ks.n_out + 1) * 4], "ks_meta": np.array([ks.n_in, ks.n_out]),
                 "samples": bk.samples},
-               params=ck.params, extra_meta={"forms": ["fblock"]})
+               params=ck.params, extra_meta={"forms": forms})
 
 
 def load_cloud_key(path: str, forms=None, device=None):
-    """Load a cloud key and build its F-block key on ``device``. ``forms``:
-    ("fblock",), the only form of this package (default: the file's, with
-    conv read as fblock)."""
+    """Load a cloud key and build ``forms`` of its bootstrapping key on
+    ``device`` ("conv" and/or "fblock"; default ("fblock",), this package's
+    form, whatever the file recorded)."""
     from ..boot.api import CloudKey
-    from ..boot.bootstrap import bootstrap_key_from_samples
+    from ..boot.bootstrap import check_forms, rebuild_bk_forms
     from ..boot.keyswitch import KeyswitchKey, pad_table
 
+    forms = check_forms(("fblock",) if forms is None else forms)
     arrs, params, extra = _load_key_file(path, "cloud_key")
-    forms = tuple(forms if forms is not None else extra.get("forms") or ("fblock",))
-    if not forms or set(forms) - {"fblock", "conv"}:
-        raise ValueError(f"forms {forms}: this package builds 'fblock' (and reads 'conv' as it)")
     device = resolve_device(device)
-    bk = bootstrap_key_from_samples(torch.from_numpy(arrs["samples"].astype(np.int32)), params,
-                                    device)
+    npdt = np.int32 if params.rlwe_bits == 32 else np.int64
+    bk = rebuild_bk_forms(torch.from_numpy(arrs["samples"].astype(npdt)), params, forms, device)
     mat = pad_table(torch.from_numpy(arrs["ks"].astype(np.int8))).to(device)
     return CloudKey(params, bk, KeyswitchKey(mat, int(arrs["ks_meta"][0]),
                                              int(arrs["ks_meta"][1])))
@@ -257,37 +260,40 @@ def _save_scheme_key(path: str, kind: str, names: tuple, ck) -> None:
 
 
 def save_ccs_cloud_key(path: str, ck) -> None:
-    """The CCS cloud key: the d1/f0/f1 lines, the expanded and the packed
-    public and shared keys, the keyswitch tables (the JAX package's fb
-    form, which it loads and runs)."""
+    """The CCS cloud key in the forms it holds: the d1/f0/f1 lines and the
+    expanded public and shared keys (fb), the packed d1/f0/f1 kernels
+    (conv), the packed public and shared keys, the keyswitch tables; the JAX
+    package loads and runs either form."""
     _save_scheme_key(path, "ccs_cloud_key", _CCS_FIELDS, ck)
 
 
-def load_ccs_cloud_key(path: str, device=None):
-    """Load a CCS cloud key onto ``device``, in either JAX form: a file with
-    only the conv form's packed kernels has its lines rebuilt from them."""
+def load_ccs_cloud_key(path: str, device=None, forms=("fb",)):
+    """Load a CCS cloud key onto ``device`` in ``forms`` ("fb" and/or
+    "conv"), from a file in either JAX form (``ccs.cloud_key_from_fields``)."""
     from ..mk import ccs
 
     kind, arrs, params, extra = load_named(path)
     _want_kind(kind, "ccs_cloud_key", path)
-    return ccs.cloud_key_from_fields(params, int(extra["parties"]), arrs, resolve_device(device))
+    return ccs.cloud_key_from_fields(params, int(extra["parties"]), arrs, resolve_device(device),
+                                     forms)
 
 
 def save_kms_cloud_key(path: str, ck) -> None:
-    """The KMS cloud key: the TGSW lines, the packed uni, public and shared
-    kernels, the keyswitch tables (the JAX package's fb form)."""
+    """The KMS cloud key in the forms it holds: the TGSW lines (fb) and/or
+    kernels (conv), the packed uni, public and shared kernels, the keyswitch
+    tables."""
     _save_scheme_key(path, "kms_cloud_key", _KMS_FIELDS, ck)
 
 
-def load_kms_cloud_key(path: str, device=None):
-    """Load a KMS cloud key onto ``device``, in either JAX form: a file with
-    only the conv form's packed TGSW kernels has its lines rebuilt from
-    them."""
+def load_kms_cloud_key(path: str, device=None, forms=("fb",)):
+    """Load a KMS cloud key onto ``device`` in ``forms`` ("fb" and/or
+    "conv"), from a file in either JAX form (``kms.cloud_key_from_fields``)."""
     from ..mk import kms
 
     kind, arrs, params, extra = load_named(path)
     _want_kind(kind, "kms_cloud_key", path)
-    return kms.cloud_key_from_fields(params, int(extra["parties"]), arrs, resolve_device(device))
+    return kms.cloud_key_from_fields(params, int(extra["parties"]), arrs, resolve_device(device),
+                                     forms)
 
 
 def save_share_set(path: str, repo) -> None:
