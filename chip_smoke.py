@@ -100,9 +100,23 @@ read just after:
   products, the host/device split of a step and the bound from shapes; E2, mk_2party_kms at full width (N = 2048,
   64-bit): the same with fast_boot, its rotates and its relinearisation
   timed apart, and a fast_boot=False batch of 16; E3, both schemes at the
-  test sets (2 and 3 parties) on the same keys on the card and the CPU,
-  equal words, and a save -> load round trip of each full-width key on the
-  card giving the same NAND words;
+  test sets (2 and 3 parties, and 4 parties with the 8-party sets'
+  gadgets) on the same keys on the card and the CPU, equal words, and a
+  save -> load round trip of each full-width key on the card giving the
+  same NAND words; E4 (CCS) and E5 (KMS) after E3, the sets above 2
+  parties at full registry width: mk_4party_ccs, mk_8party_ccs,
+  mk_4party_kms (B = 256) and mk_8party_kms (B = 128). Their keygens run
+  on the CPU in four worker processes started at the top of the run (one
+  a set, a CPU generator from a fixed seed each), while the card runs the
+  phases above, and hand each key over as the JAX key's numpy fields
+  (bridge.{ccs,kms}_cloud_key_from_numpy). Per set: keygen seconds and the
+  shares of build_sel, tgsw_encrypt and keyswitch_keygen in it, the key's
+  bytes on the card equal to those from the set's shapes, one NAND batch
+  over all four input pairs decrypted, its noise from the same batch (E1's
+  and E2's bounds), no kernel launch, the int8 products (CCS: steps x
+  (P+3) + P), wall seconds, gates/s, peak memory, the host/device split of
+  a CMux step on a 64-step chunk, the bound from shapes, and a ``routes``
+  line;
 - the measurement modules (utils/noise.py, utils/profiling.py), each run with
   the counts at 0 before it and read after, each NoiseReport's JSON and each
   profile on a line of its own: N1, measure_single_key at tfhe_128_tpu_fast,
@@ -120,7 +134,7 @@ read just after:
   (B=256), the rotate kernel the largest category; N6, run_mk_pipeline at
   mk_4party_3gen (compact key) on a synthetic cardio-format CSV, every
   prediction equal to plaintext_oracle and the threshold tail on ring 4 n.
-  N2, N4 and N5 run where their keys are held; N1, N3 and N6 after E3;
+  N2, N4 and N5 run where their keys are held; N1, N3 and N6 after E5;
 - the key forms and routes the user chooses (boot/bootstrap.py's
   ``forms=`` and ``set_rotate_backend``), each with the counts at 0 before
   it and each line with the card's name and power limit: V1, the
@@ -133,7 +147,7 @@ read just after:
   bytes from shapes and the int8 products; V2 and V3, inside E1 and E2
   (whose keygens build the fb and conv forms at once): the NAND of 16 pairs
   on the conv form (mk_2party_ccs; mk_2party_kms with fast_boot True and
-  False) == on the fb form, no launch; V4, after E3, the host native
+  False) == on the fb form, no launch; V4, after E5, the host native
   runtime (ops/native.py) built with g++, share_secret_streaming at
   thfhe_1024 3 of 5 through it == the numpy path, the shares decrypting on
   the card.
@@ -153,7 +167,7 @@ and its plain version's at its main shape, beside the bound computed from
 the shapes; no single PyTorch call computes a CMux chain, so library_ms is
 null, and a yardstick line, labelled partial, gives n times the one
 torch._int_mm of a plain step), the
-``routes`` record of the wide route and of E1-E2 (per set: no launch of either
+``routes`` record of the wide route and of E1-E5 (per set: no launch of either
 kernel, and its count of int8 products; for CCS and KMS also keygen, key bytes,
 NAND seconds, noise, the time split and bound, the key file), the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": ...}. Without a CUDA device, or
@@ -164,6 +178,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -209,7 +224,25 @@ S1_MK_SET = "mk_4party_3gen"  # the 3gen key that S1 saves and loads
 # E1, E2: the CCS and KMS sets at full registry width (registry name, batch)
 SCHEME_SETS = (("mk_2party_ccs", 256), ("mk_2party_kms", 256))
 KMS_SLOW_BATCH = 16  # E2: the fast_boot=False batch
-E3_PARTIES = (2, 3)  # E3: card against CPU at test_parameters_{ccs,kms}
+# E3: card against CPU at test_parameters_{ccs,kms}: (parties, the registry
+# set whose gadgets replace the test set's, or None for the test set's own)
+E3_SETS = ((2, None), (3, None), (4, "8party"))
+# E4 (CCS) and E5 (KMS): the sets above 2 parties at full registry width
+# (registry name, batch); mk_8party_kms at B=128, whose 3B = 384 TLev rows a
+# party stay under the 2-party set's 512. Their keygens run in worker
+# processes started at the top of main(), while the card runs the earlier
+# phases, and hand the keys over as the JAX key's numpy fields.
+MULTI_SCHEME_SETS = (("mk_4party_ccs", 256), ("mk_8party_ccs", 256), ("mk_4party_kms", 256),
+                     ("mk_8party_kms", 128))
+# the gadget fields of each scheme's parameter set
+GADGET_FIELDS = {"ccs": ("bs_decomp_length", "bs_log2_base"),
+                 "kms": ("gsw_decomp_length", "gsw_log2_base", "lev_decomp_length",
+                         "lev_log2_base", "uni_decomp_length", "uni_log2_base")}
+HANDED_FIELDS = {"ccs": ("d_sel", "f0_sel", "f1_sel", "pk_kern", "sk_kern", "ks_mats"),
+                 "kms": ("gsw_sel", "d_kern", "f0_kern", "f1_kern", "pk_kern", "sk_kern",
+                         "ks_mats")}
+KEYGEN_WAIT_S = 600  # E4/E5 wait at most this long for a keygen worker still running
+KEYGENS = {}  # name -> (worker process, its directory); "tmp": the directory they share
 PHASE_BOUND = 1 / 16  # max |phase - ideal| of a KMS gate, and of both at the test sets
 # E1: a CCS gate's noise std against tools/scheme_noise.ccs_noise_std, which
 # leaves out the steps' covariance through the mean of r (it adds, never removes)
@@ -507,6 +540,7 @@ def main() -> int:
     SMI = smi
     log("device", f"{kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
+    start_scheme_keygens()
 
     # 2. build
     t = time.perf_counter()
@@ -759,6 +793,7 @@ def main() -> int:
     routes = wide_route(dev, rng)
     routes.update(scan_routes)
     routes.update(scheme_phases(dev, rng))
+    routes.update(multiparty_schemes(dev, rng))
     routes.update(native_phase(dev))
     for phase in (noise_single_key, noise_3gen_public, exact_route, mk_knn_phase):
         for k, n in phase(dev, rng, routes).items():
@@ -1557,7 +1592,6 @@ def scheme_phases(dev, rng) -> dict:
     from torus_fhe_tpu_torch import mk
     from torus_fhe_tpu_torch.core import params as P
     from torus_fhe_tpu_torch.mk import ccs, kms
-    from torus_fhe_tpu_torch.ops import cuda_rotate, poly
     from torus_fhe_tpu_torch.tools.scheme_noise import allowed_wrong, ccs_noise_std, phase_error
     from torus_fhe_tpu_torch.utils import serialize
 
@@ -1584,21 +1618,7 @@ def scheme_phases(dev, rng) -> dict:
         pairs = torch.from_numpy(rng.permutation(np.arange(B) % 4)).to(dev)
         x, y = pairs >= 2, pairs % 2 == 1
         cx, cy = mk.mk_encrypt(gen, keys, x, params), mk.mk_encrypt(gen, keys, y, params)
-        torch.cuda.synchronize()
-        reset_launches(cuda_rotate)
-        poly.int8_matmul.calls = 0
-        out, t_cold = sync_time(lambda: scheme.mk_gate_nand(ck, cx, cy))
-        got = {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
-               "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches,
-               "int8_matmul": poly.int8_matmul.calls}
-        if got["blind_rotate"] or got["blind_rotate_sel"]:
-            raise AssertionError(f"{tag} {name}: a kernel launched: {got}")
-        steps = parties * n
-        if scheme is ccs and got["int8_matmul"] != steps * (parties + 3) + parties:
-            raise AssertionError(f"{tag} {name}: {got['int8_matmul']} int8 products, want "
-                                 f"{steps} steps x {parties + 3} + {parties} keyswitches")
-        if out.a.shape != (B, parties, n) or out.a.dtype != torch.int32:
-            raise AssertionError(f"{tag} {name}: gate output {out.a.dtype} {tuple(out.a.shape)}")
+        out, t_cold, got = scheme_nand(f"{tag} {name}", scheme, ck, cx, cy)
         wrong = int(mk.mk_decrypt(keys, out).ne(~(x & y)).sum())
         peak = torch.cuda.max_memory_allocated()
         # N4: the noise, through the harness's report step on this key
@@ -1673,8 +1693,13 @@ def scheme_phases(dev, rng) -> dict:
     for scheme, make in ((ccs, P.test_parameters_ccs), (kms, P.test_parameters_kms)):
         keygen = ccs.ccs_party_keygen if scheme is ccs else kms.kms_party_keygen
         cloud = ccs.ccs_cloud_keygen if scheme is ccs else kms.kms_cloud_keygen
-        for parties in E3_PARTIES:
+        short = "ccs" if scheme is ccs else "kms"
+        for parties, gadgets in E3_SETS:
             params = make(parties=parties)
+            if gadgets:  # the registry set's gadgets on the test set's n and N
+                reg = P.PARAMETER_REGISTRY[f"mk_{gadgets}_{short}"]()
+                params = dataclasses.replace(params, **{f: getattr(reg, f)
+                                                        for f in GADGET_FIELDS[short]})
             outs = {}
             for where in ("cpu", dev):
                 gen = torch.Generator().manual_seed(SEED + 300 + parties)
@@ -1689,15 +1714,16 @@ def scheme_phases(dev, rng) -> dict:
                     wrong, err_max, _, _ = phase_error(out, keys, ~((bits >= 2) & (bits % 2 == 1)),
                                                        PHASE_BOUND)
                     if wrong or not err_max < PHASE_BOUND:  # the JAX test's bound at its set
-                        raise AssertionError(f"E3 {scheme.__name__} {parties} parties on {where}: "
+                        raise AssertionError(f"E3 {short} {parties} parties {gadgets} on {where}: "
                                              f"{wrong} wrong, max |phase - ideal| {err_max:.5f}")
             err = max(max_diff(c.a.cpu(), g.a) + max_diff(c.b.cpu(), g.b)
                       for c, g in zip(outs[str(dev)], outs["cpu"]))
             if err:
-                raise AssertionError(f"E3 {scheme.__name__} {parties} parties: card != CPU, max "
+                raise AssertionError(f"E3 {short} {parties} parties {gadgets}: card != CPU, max "
                                      f"|diff| {err}")
-            log("E3 card==CPU", f"{scheme.__name__.rsplit('.', 1)[-1]} test set, {parties} parties, "
-                f"same keys: NAND words on the card == on the CPU, max |diff| {err}"
+            log("E3 card==CPU", f"{short} test set, {parties} parties"
+                + (f", mk_{gadgets}_{short}'s gadgets" if gadgets else "")
+                + f", same keys: NAND words on the card == on the CPU, max |diff| {err}"
                 + (" (fast_boot True and False)" if scheme is kms else ""))
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1725,6 +1751,33 @@ def scheme_phases(dev, rng) -> dict:
     return routes
 
 
+def scheme_nand(tag: str, scheme, ck, cx, cy):
+    """One CCS or KMS NAND batch with the counts at 0 just before it:
+    (output, wall seconds, launches of each kernel and int8 products). Fails
+    if a kernel launched, if a CCS gate's int8 products are not P+3 a CMux
+    step and one keyswitch a party, or if the output is not (B, P, n)
+    int32."""
+    from torus_fhe_tpu_torch.mk import ccs
+    from torus_fhe_tpu_torch.ops import cuda_rotate, poly
+
+    P, n, B = ck.parties, ck.params.lwe_size, cx.b.shape[0]
+    torch.cuda.synchronize()
+    reset_launches(cuda_rotate)
+    poly.int8_matmul.calls = 0
+    out, wall = sync_time(lambda: scheme.mk_gate_nand(ck, cx, cy))
+    got = {"blind_rotate": cuda_rotate.blind_rotate_cuda.launches,
+           "blind_rotate_sel": cuda_rotate.blind_rotate_sel_cuda.launches,
+           "int8_matmul": poly.int8_matmul.calls}
+    if got["blind_rotate"] or got["blind_rotate_sel"]:
+        raise AssertionError(f"{tag}: a kernel launched: {got}")
+    if scheme is ccs and got["int8_matmul"] != P * n * (P + 3) + P:
+        raise AssertionError(f"{tag}: {got['int8_matmul']} int8 products, want {P * n} steps x "
+                             f"{P + 3} + {P} keyswitches")
+    if out.a.shape != (B, P, n) or out.a.dtype != torch.int32:
+        raise AssertionError(f"{tag}: gate output {out.a.dtype} {tuple(out.a.shape)}")
+    return out, wall, got
+
+
 def noise_scheme(tag: str, scheme: str, sks, ck, gen, rng, dev):
     """N4: the CCS or KMS report step on a key held here, N4_TRIALS
     messages; no kernel may launch. Prints the report's JSON on a line of
@@ -1740,9 +1793,10 @@ def noise_scheme(tag: str, scheme: str, sks, ck, gen, rng, dev):
     return rep
 
 
-def ccs_split(ck, temp, B: int, tag: str, name: str) -> dict:
-    """Where a CCS gate's time goes: the rotate, host against device a CMux
-    step, and the bound from shapes."""
+def ccs_split(ck, temp, B: int, tag: str, name: str, full: bool = True) -> dict:
+    """Where a CCS gate's time goes: the rotate (``full``: a second whole
+    rotate, timed), host against device a CMux step on a 64-step chunk, and
+    the bound from shapes."""
     import dataclasses
 
     from torus_fhe_tpu_torch.mk import ccs
@@ -1753,7 +1807,8 @@ def ccs_split(ck, temp, B: int, tag: str, name: str) -> dict:
     acc, bara = ccs.rotate_input(ccs.MU, temp, N, P, torch.int32)
     bara = bara.flatten(1)
     steps = bara.shape[1]
-    _, t_enq, t_rot = enqueue_and_total(lambda: ccs.ccs_blind_rotate_fb(acc, ck, bara))
+    if full:
+        _, t_enq, t_rot = enqueue_and_total(lambda: ccs.ccs_blind_rotate_fb(acc, ck, bara))
     part = dataclasses.replace(ck, d_sel=ck.d_sel[:64], f0_sel=ck.f0_sel[:64],
                                f1_sel=ck.f1_sel[:64])
     busy_ms, top = device_busy(lambda: ccs.ccs_blind_rotate_fb(acc, part, bara[:, :64]))
@@ -1768,23 +1823,29 @@ def ccs_split(ck, temp, B: int, tag: str, name: str) -> dict:
              + B * steps * 4 + 2 * B * (P + 1) * N * 4)
     bound, by = cuda_rotate.bound_ms(2 * macs, cuda_rotate.INT8_OPS_PER_S, moved)
     busy = None if busy_ms is None else busy_ms / 64
+    rec = {"host_step_ms_b1": host_s / 64 * 1e3, "device_step_ms": busy, "bound_ms": bound,
+           "bound_by": by}
+    rotate = ""
+    if full:
+        rotate = (f": rotate {t_rot * 1e3:.1f} ms = {t_rot / steps * 1e3:.3f} ms a step, host "
+                  f"enqueue {t_enq / steps * 1e3:.3f} ms a step")
+        rec.update(rotate_s=t_rot, step_ms=t_rot / steps * 1e3,
+                   host_enqueue_step_ms=t_enq / steps * 1e3)
     log(f"{tag} {name} rotate", f"B={B}, {steps} CMux steps, {P + 3} int8 products a step "
-        f"(u, {P + 1} x v, w0|w1), {nl} digit limb blocks: rotate {t_rot * 1e3:.1f} ms = "
-        f"{t_rot / steps * 1e3:.3f} ms a step, host enqueue {t_enq / steps * 1e3:.3f} ms a step; "
-        f"a 64-step chunk at B=1 {host_s / 64 * 1e3:.3f} ms a step (the host's share), kernels "
-        f"on the card {'not measured' if busy is None else f'{busy:.3f} ms'} a step "
+        f"(u, {P + 1} x v, w0|w1), {nl} digit limb blocks{rotate}; a 64-step chunk at B=1 "
+        f"{host_s / 64 * 1e3:.3f} ms a step (the host's share), kernels on the card "
+        f"{'not measured' if busy is None else f'{busy:.3f} ms'} a step at B={B} "
         f"(torch.profiler; top: {'; '.join(top) if top else 'none'}); bound from shapes "
         f"{bound:.1f} ms a gate batch ({by})")
-    return {"rotate_s": t_rot, "step_ms": t_rot / steps * 1e3, "host_enqueue_step_ms":
-            t_enq / steps * 1e3, "host_step_ms_b1": host_s / 64 * 1e3, "device_step_ms": busy,
-            "bound_ms": bound, "bound_by": by}
+    return rec
 
 
-def kms_split(ck, temp, B: int, tag: str, name: str) -> dict:
-    """Where a KMS gate's time goes: party 0's single-key rotate and its
-    uni-product entry, party 1's TLev rotate and its relinearisation (TLev
-    product + uni-product), host against device a CMux step, and the bound
-    from shapes."""
+def kms_split(ck, temp, B: int, tag: str, name: str, full: bool = True) -> dict:
+    """Where a KMS gate's time goes: (``full``: the gate again, part by
+    part) party 0's single-key rotate and its uni-product entry, each other
+    party's TLev rotate and its relinearisation (TLev product +
+    uni-product); host against device a TLev CMux step on a 64-step chunk,
+    and the bound from shapes."""
     from torus_fhe_tpu_torch.mk import ccs, kms
     from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
 
@@ -1792,22 +1853,31 @@ def kms_split(ck, temp, B: int, tag: str, name: str) -> dict:
     P, N, n = ck.parties, params.rlwe_polynomial_degree, params.lwe_size
     gp, geom = params.tgsw, kms.kms_fb_geometry(params, n)
     acc, bara = ccs.rotate_input(kms.MU64, temp, N, P, torch.int64)
-    sacc = torch.stack([torch.zeros_like(acc[:, P]), acc[:, P]], dim=1)
     rot = lambda a, sel, b: fblock.blind_rotate_streamed(a, sel, b, geom, gp.decomp_length,
                                                          gp.log2_base, gp.offset)
-    sacc, t_single = sync_time(lambda: rot(sacc, ck.gsw_sel[:n], bara[:, 0]))
-    e, f = torch.zeros_like(acc), torch.zeros_like(acc)
-    e[:, P], f[:, P] = sacc[:, 0], sacc[:, 1]
-    acc1, t_uni0 = sync_time(lambda: f - kms.uni_product_new(e, ck, 0))
-    times = {"single_rotate": t_single, "uni_entry": t_uni0}
-    for p in range(1, P):
-        lev, times[f"lev_rotate_{p}"] = sync_time(lambda: kms._lev_blind_rotate(ck, p, bara[:, p],
-                                                                                64))
-        ef, times[f"tlev_product_{p}"] = sync_time(lambda: kms.tlev_extern_mul(acc1, lev, params))
-        uni, times[f"uni_product_{p}"] = sync_time(lambda: kms.uni_product_new(ef[..., 0, :], ck, p))
-        acc1 = ef[..., 1, :] - uni
-    rotates = sum(v for k, v in times.items() if "rotate" in k)
-    relin = sum(v for k, v in times.items() if "rotate" not in k)
+    rec = {}
+    if full:
+        sacc = torch.stack([torch.zeros_like(acc[:, P]), acc[:, P]], dim=1)
+        sacc, t_single = sync_time(lambda: rot(sacc, ck.gsw_sel[:n], bara[:, 0]))
+        e, f = torch.zeros_like(acc), torch.zeros_like(acc)
+        e[:, P], f[:, P] = sacc[:, 0], sacc[:, 1]
+        acc1, t_uni0 = sync_time(lambda: f - kms.uni_product_new(e, ck, 0))
+        times = {"single_rotate": t_single, "uni_entry": t_uni0}
+        for p in range(1, P):
+            lev, times[f"lev_rotate_{p}"] = sync_time(
+                lambda: kms._lev_blind_rotate(ck, p, bara[:, p], 64))
+            ef, times[f"tlev_product_{p}"] = sync_time(
+                lambda: kms.tlev_extern_mul(acc1, lev, params))
+            uni, times[f"uni_product_{p}"] = sync_time(
+                lambda: kms.uni_product_new(ef[..., 0, :], ck, p))
+            acc1 = ef[..., 1, :] - uni
+        rotates = sum(v for k, v in times.items() if "rotate" in k)
+        relin = sum(v for k, v in times.items() if "rotate" not in k)
+        rec = {"parts_s": times, "rotates_s": rotates, "relin_s": relin,
+               "lev_step_ms": times["lev_rotate_1"] / n * 1e3,
+               "single_step_ms": t_single / n * 1e3}
+        log(f"{tag} {name} parts", ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+            + f"; rotates {rotates * 1e3:.1f} ms, relinearisation {relin * 1e3:.1f} ms")
     llev = params.lev_decomp_length
     lev_rows = B * llev
     chunk_acc = torch.zeros((lev_rows, 2, N), dtype=torch.int64, device=acc.device)
@@ -1828,19 +1898,220 @@ def kms_split(ck, temp, B: int, tag: str, name: str) -> dict:
     moved = (ck.gsw_sel.numel() + ck.ks_mats.numel() + B * P * n * 4 + 2 * B * (P + 1) * N * 8)
     bound, by = cuda_rotate.bound_ms(2 * (rot_macs + relin_macs), cuda_rotate.INT8_OPS_PER_S, moved)
     busy = None if busy_ms is None else busy_ms / 64
-    log(f"{tag} {name} parts", ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
-        + f"; rotates {rotates * 1e3:.1f} ms, relinearisation {relin * 1e3:.1f} ms")
+    steps = (f"{rec['lev_step_ms']:.3f} ms a step; single-key rotate (B={B}) "
+             f"{rec['single_step_ms']:.3f} ms a step; ") if full else ""
     log(f"{tag} {name} rotate", f"TLev rotate of B*l_lev = {lev_rows} rows, {n} steps, one int8 "
-        f"product a step ({nl} digit limb blocks, {cols} limb columns, 64-bit): "
-        f"{times['lev_rotate_1'] / n * 1e3:.3f} ms a step; a 64-step chunk at one row "
-        f"{host_s / 64 * 1e3:.3f} ms a step (the host's share), kernels on the card "
-        f"{'not measured' if busy is None else f'{busy:.3f} ms'} a step (torch.profiler; top: "
-        f"{'; '.join(top) if top else 'none'}); single-key rotate (B={B}) "
-        f"{t_single / n * 1e3:.3f} ms a step; bound from shapes {bound:.1f} ms a gate batch ({by})")
-    return {"parts_s": times, "rotates_s": rotates, "relin_s": relin,
-            "lev_step_ms": times["lev_rotate_1"] / n * 1e3, "single_step_ms": t_single / n * 1e3,
-            "host_step_ms_b1": host_s / 64 * 1e3, "device_step_ms": busy, "bound_ms": bound,
-            "bound_by": by}
+        f"product a step ({nl} digit limb blocks, {cols} limb columns, 64-bit): {steps}a "
+        f"64-step chunk at one row {host_s / 64 * 1e3:.3f} ms a step (the host's share), kernels "
+        f"on the card {'not measured' if busy is None else f'{busy:.3f} ms'} a step at "
+        f"{lev_rows} rows (torch.profiler; top: {'; '.join(top) if top else 'none'}); bound "
+        f"from shapes {bound:.1f} ms a gate batch ({by})")
+    return {**rec, "host_step_ms_b1": host_s / 64 * 1e3, "device_step_ms": busy,
+            "bound_ms": bound, "bound_by": by}
+
+
+def start_scheme_keygens() -> None:
+    """Start E4/E5's keygens: one worker process a MULTI_SCHEME_SETS set
+    (spawned, one torch thread each, the CPU only), each writing its key
+    into a directory of one temporary directory (KEYGENS)."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    from torus_fhe_tpu_torch.core import params as P
+
+    tmp = tempfile.TemporaryDirectory(prefix="e45_")
+    KEYGENS["tmp"] = tmp
+    ctx = multiprocessing.get_context("spawn")
+    for i, (name, _) in enumerate(MULTI_SCHEME_SETS):
+        out_dir = os.path.join(tmp.name, name)
+        os.makedirs(out_dir)
+        proc = ctx.Process(target=scheme_keygen,
+                           args=(P.PARAMETER_REGISTRY[name](), SEED + 500 + i, out_dir),
+                           name=f"keygen {name}", daemon=True)
+        proc.start()
+        KEYGENS[name] = (proc, out_dir)
+    log("E4/E5 keygens", f"{len(MULTI_SCHEME_SETS)} worker processes started: "
+        f"{', '.join(name for name, _ in MULTI_SCHEME_SETS)}")
+
+
+def stop_scheme_keygens() -> None:
+    """End every keygen worker still running and remove their directory."""
+    for name, entry in list(KEYGENS.items()):
+        if name != "tmp" and entry[0].is_alive():
+            entry[0].kill()
+        if name != "tmp":
+            entry[0].join(10)
+    if "tmp" in KEYGENS:
+        KEYGENS["tmp"].cleanup()
+    KEYGENS.clear()
+
+
+def scheme_keygen(params, seed: int, out_dir: str) -> None:
+    """One E4/E5 keygen in a worker process, on the CPU: the parties' keys
+    and the cloud key of the CCS or KMS set ``params`` from a CPU generator seeded
+    with ``seed`` (the key a function of the seed, as on the card), saved
+    into ``out_dir`` as the fields of the JAX package's cloud key that
+    bridge.{ccs,kms}_cloud_key_from_numpy take (``HANDED_FIELDS``), the
+    parties' LWE and ring keys, and keygen.json: its wall seconds and the
+    shares of build_sel (the compact lines and their limb split),
+    tgsw_encrypt and keyswitch_keygen in it."""
+    import os
+
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.mk import ccs, kms
+    from torus_fhe_tpu_torch.ops import fblock
+
+    torch.set_num_threads(1)
+    scheme, short = (ccs, "ccs") if isinstance(params, P.SchemeParamsCCS) else (kms, "kms")
+    shares = {"build_sel": 0.0, "tgsw_encrypt": 0.0, "keyswitch_keygen": 0.0}
+
+    def timed(module, fn_name):  # the share of one function, in this process only
+        fn = getattr(module, fn_name)
+
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                shares[fn_name] += time.perf_counter() - t
+        setattr(module, fn_name, run)
+
+    timed(fblock, "build_sel")
+    timed(scheme, "keyswitch_keygen")
+    if scheme is kms:
+        timed(kms, "tgsw_encrypt")
+    party = ccs.ccs_party_keygen if scheme is ccs else kms.kms_party_keygen
+    cloud = ccs.ccs_cloud_keygen if scheme is ccs else kms.kms_cloud_keygen
+    gen = torch.Generator().manual_seed(seed)
+    t0 = time.perf_counter()
+    sks = [party(gen, params, device="cpu") for _ in range(params.max_parties)]
+    ck = cloud(gen, sks, params, device="cpu")
+    t_keygen = time.perf_counter() - t0
+    t = time.perf_counter()
+    for field in HANDED_FIELDS[short]:
+        np.save(os.path.join(out_dir, f"{field}.npy"), getattr(ck, field).numpy())
+    np.save(os.path.join(out_dir, "lwe_keys.npy"), np.stack([sk.lwe.key.numpy() for sk in sks]))
+    np.save(os.path.join(out_dir, "rlwe_keys.npy"), np.stack([sk.rlwe.key.numpy() for sk in sks]))
+    rec = {"keygen_s": t_keygen, "shares_s": shares, "save_s": time.perf_counter() - t}
+    with open(os.path.join(out_dir, "keygen.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def scheme_key_bytes(params, parties: int) -> int:
+    """Bytes of a CCS or KMS cloud key in its fb form on the card, from the
+    set's shapes: CCS the d1/f0/f1 lines (3 x P*n*l*2N*4), the expanded
+    public-key and shared-key blocks ((P+1) x 2N*l x 4*bs) and their packed
+    kernels; KMS the TGSW lines (P*n*2l*2N*16) and the packed uni, public
+    and shared kernels (8 limbs of l_uni x N each); both the keyswitch
+    tables (P x N*l_ks*(2^log2 - 1) x (n+1)*4 padded to a multiple of 8)."""
+    n, N = params.lwe_size, params.rlwe_polynomial_degree
+    ks = params.ks
+    tables = parties * N * ks.decomp_length * ((1 << ks.log2_base) - 1) * (-(-(n + 1) * 4 // 8) * 8)
+    if hasattr(params, "bs_decomp_length"):
+        l, bs = params.bs_decomp_length, min(128, N)
+        lines = 3 * parties * n * l * 2 * N * 4
+        blocks = (parties + 1) * 2 * N * l * 4 * bs
+        return lines + blocks + (parties + 1) * 4 * l * N + tables
+    lines = parties * n * 2 * params.gsw_decomp_length * 2 * N * 16
+    return lines + (4 * parties + 1) * 8 * params.uni_decomp_length * N + tables
+
+
+def multiparty_schemes(dev, rng) -> dict:
+    """E4 (CCS) and E5 (KMS) at 4 and 8 parties, full registry width
+    (MULTI_SCHEME_SETS), torch ops that launch neither kernel: per set the
+    keygen worker's key (its seconds, and the shares of build_sel,
+    tgsw_encrypt and keyswitch_keygen) placed on the card through
+    bridge.{ccs,kms}_cloud_key_from_numpy, its bytes equal to the ones from
+    shapes; one NAND batch over all four input pairs with the counts at 0,
+    decrypted, its noise from the same batch (CCS: the std within
+    CCS_NOISE_BAND of ccs_noise_std and the wrong count under what that
+    allows; KMS: 0 wrong and max |phase - ideal| < PHASE_BOUND), no kernel
+    launch, the int8 products (CCS: steps x (P+3) + P), wall seconds,
+    gates/s, peak memory, the host/device split of a CMux step on a 64-step
+    chunk and the bound from shapes. One ``routes`` line a set; returns the
+    records."""
+    import os
+
+    from torus_fhe_tpu_torch import bridge, mk
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.mk import ccs, kms
+    from torus_fhe_tpu_torch.tools.scheme_noise import allowed_wrong, ccs_noise_std, phase_error
+
+    routes = {}
+    for i, (name, B) in enumerate(MULTI_SCHEME_SETS):
+        scheme, short = (ccs, "ccs") if name.endswith("_ccs") else (kms, "kms")
+        tag = "E4" if scheme is ccs else "E5"
+        params = P.PARAMETER_REGISTRY[name]()
+        parties, n = params.max_parties, params.lwe_size
+        proc, out_dir = KEYGENS[name]
+        t = time.perf_counter()
+        proc.join(KEYGEN_WAIT_S)
+        t_wait = time.perf_counter() - t
+        if proc.is_alive() or proc.exitcode != 0:
+            raise AssertionError(f"{tag} {name}: the keygen worker "
+                                 + ("did not end" if proc.is_alive() else
+                                    f"exited with code {proc.exitcode}"))
+        with open(os.path.join(out_dir, "keygen.json")) as fh:
+            made = json.load(fh)
+        load = lambda f: np.load(os.path.join(out_dir, f"{f}.npy"), mmap_mode="r")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        to_card = getattr(bridge, f"{short}_cloud_key_from_numpy")
+        ck, t_card = sync_time(lambda: to_card(params, parties, device=dev,
+                                               **{f: load(f) for f in HANDED_FIELDS[short]}))
+        sks = bridge.mk_secret_keys_from_numpy(params, load("lwe_keys"), load("rlwe_keys"),
+                                               device=dev)
+        shutil.rmtree(out_dir)
+        have, want_bytes = key_bytes(ck), scheme_key_bytes(params, parties)
+        if have != want_bytes:
+            raise AssertionError(f"{tag} {name}: {have} key bytes on the card, {want_bytes} from "
+                                 "shapes")
+        keys = [sk.lwe for sk in sks]
+        gen = torch.Generator().manual_seed(SEED + 600 + i)
+        pairs = torch.from_numpy(rng.permutation(np.arange(B) % 4)).to(dev)
+        x, y = pairs >= 2, pairs % 2 == 1
+        cx, cy = mk.mk_encrypt(gen, keys, x, params), mk.mk_encrypt(gen, keys, y, params)
+        out, t_nand, got = scheme_nand(f"{tag} {name}", scheme, ck, cx, cy)
+        peak = torch.cuda.max_memory_allocated()
+        steps = parties * n
+        wrong, err_max, err_std, over = phase_error(out, keys, ~(x & y), PHASE_BOUND)
+        if scheme is ccs:
+            pred = ccs_noise_std(params)
+            allowed = allowed_wrong(B, pred * CCS_NOISE_BAND[1])
+            ok = wrong <= allowed and CCS_NOISE_BAND[0] <= err_std / pred <= CCS_NOISE_BAND[1]
+            gate = (f"std {err_std / pred:.3f}x the predicted {pred:.5f} within {CCS_NOISE_BAND}, "
+                    f"{wrong} wrong at most {allowed}")
+        else:
+            ok = wrong == 0 and err_max < PHASE_BOUND
+            gate = f"{wrong} wrong, max |phase - ideal| {err_max:.5f} under {PHASE_BOUND}"
+        shares = ", ".join(f"{k} {v:.1f} s" for k, v in made["shares_s"].items())
+        log(f"{tag} {name}", f"keygen worker {made['keygen_s']:.2f} s ({shares}; saved in "
+            f"{made['save_s']:.2f} s), waited {t_wait:.2f} s, onto the card {t_card:.2f} s; key "
+            f"on the card {have / 1e9:.3f} GB (== from shapes); NAND B={B} (all four input "
+            f"pairs) {t_nand:.3f} s = {B / t_nand:.1f} gates/s, {steps} CMux steps "
+            f"({t_nand / steps * 1e3:.3f} ms a step); {wrong} wrong; max |phase - ideal| "
+            f"{err_max:.5f}, {over} at or over {PHASE_BOUND}, std {err_std:.5f}; blind_rotate 0x, "
+            f"blind_rotate_sel 0x, int8 products {got['int8_matmul']}; peak memory "
+            f"{peak / 1e9:.2f} GB; held to: {gate}: {'met' if ok else 'NOT MET'} [{SMI}]")
+        if not ok:
+            raise AssertionError(f"{tag} {name}: {gate} not met")
+        temp = mk.mk_lwe_noiseless_trivial(ccs.MU, params.lwe, parties, (B,), device=dev) - cx - cy
+        split = (ccs_split if scheme is ccs else kms_split)(ck, temp, B, tag, name, full=False)
+        rec = {"route": "torch ops (F-block products, 32-bit)" if scheme is ccs else
+               "torch ops (64-bit F-block scan, Toeplitz products)", **got, "gates": 1,
+               "batch": B, "keygen_s": made["keygen_s"], "keygen_shares_s": made["shares_s"],
+               "key_to_card_s": t_card, "key_bytes": have, "nand_s": t_nand,
+               "gates_per_s": B / t_nand, "step_ms": t_nand / steps * 1e3, "peak_bytes": peak,
+               "wrong": wrong, "phase_err_max": err_max, "over_bound": over,
+               "boot_noise_std": err_std, **split}
+        if scheme is ccs:
+            rec["predicted_std"] = pred
+        print(json.dumps({"routes": {name: rec}}), flush=True)
+        routes[name] = rec
+        del ck, sks, cx, cy, out, temp
+        torch.cuda.empty_cache()
+    return routes
 
 
 def circuit_phase(name: str, kernel, fn):
@@ -2792,4 +3063,7 @@ def mk_knn_phase(dev, rng, routes) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_scheme_keygens()
