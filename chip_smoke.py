@@ -18,7 +18,9 @@ read just after:
   encrypt -> mk_gate_and / mk_gate_nand -> decrypt) at mk_2party_3gen
   (expanded key, blind_rotate.cu) and at mk_4party_3gen and mk_8party_3gen
   (compact key, blind_rotate_sel.cu), decrypt-checked, with the boot-noise
-  std held to the committed envelope of measurements/ (through N2 below);
+  std held to the committed envelope of measurements/ (through N2 below),
+  and on each set's key the 3gen row of tools/perf_comp (one NAND batch,
+  decrypt-checked, its kernel launched once);
 - the party-pipelined multikey bootstrap (parallel/mk_pipeline.py:
   party-sharded key -> mk_bootstrap_pipelined -> NAND -> decrypt) at
   mk_8party_3gen (compact key, B=256, 4 microbatches: 32 launches of
@@ -105,18 +107,22 @@ read just after:
   save -> load round trip of each full-width key on the card giving the
   same NAND words; E4 (CCS) and E5 (KMS) after E3, the sets above 2
   parties at full registry width: mk_4party_ccs, mk_8party_ccs,
-  mk_4party_kms (B = 256) and mk_8party_kms (B = 128). Their keygens run
-  on the CPU in four worker processes started at the top of the run (one
-  a set, a CPU generator from a fixed seed each), while the card runs the
-  phases above, and hand each key over as the JAX key's numpy fields
+  mk_4party_kms (B = 256) and mk_8party_kms (B = 128); E6 after E5, the
+  16-party sets mk_16party_ccs and mk_16party_kms (B = 64), which the JAX
+  package never ran. Their keygens run on the CPU in six worker processes
+  started at the top of the run (tools/perf_comp.start_keygens: one a set,
+  a CPU generator from a fixed seed each; the host's cores and the free
+  bytes of their directory logged first), while the card runs the phases
+  above, and hand each key over as the JAX key's numpy fields
   (bridge.{ccs,kms}_cloud_key_from_numpy). Per set: keygen seconds and the
   shares of build_sel, tgsw_encrypt and keyswitch_keygen in it, the key's
   bytes on the card equal to those from the set's shapes, one NAND batch
-  over all four input pairs decrypted, its noise from the same batch (E1's
-  and E2's bounds), no kernel launch, the int8 products (CCS: steps x
-  (P+3) + P), wall seconds, gates/s, peak memory, the host/device split of
-  a CMux step on a 64-step chunk, the bound from shapes, and a ``routes``
-  line;
+  over all four input pairs through tools/perf_comp.row: decrypted, its
+  noise from the same batch (E1's and E2's bounds; CCS against
+  ccs_noise_std on the key), no kernel launch, the int8 products (CCS:
+  steps x (P+3) + P), wall seconds, gates/s, peak memory; then the
+  host/device split of a CMux step on a 64-step chunk, the bound from
+  shapes, and a ``routes`` line;
 - the measurement modules (utils/noise.py, utils/profiling.py), each run with
   the counts at 0 before it and read after, each NoiseReport's JSON and each
   profile on a line of its own: N1, measure_single_key at tfhe_128_tpu_fast,
@@ -167,7 +173,7 @@ and its plain version's at its main shape, beside the bound computed from
 the shapes; no single PyTorch call computes a CMux chain, so library_ms is
 null, and a yardstick line, labelled partial, gives n times the one
 torch._int_mm of a plain step), the
-``routes`` record of the wide route and of E1-E5 (per set: no launch of either
+``routes`` record of the wide route and of E1-E6 (per set: no launch of either
 kernel, and its count of int8 products; for CCS and KMS also keygen, key bytes,
 NAND seconds, noise, the time split and bound, the key file), the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": ...}. Without a CUDA device, or
@@ -229,24 +235,18 @@ KMS_SLOW_BATCH = 16  # E2: the fast_boot=False batch
 E3_SETS = ((2, None), (3, None), (4, "8party"))
 # E4 (CCS) and E5 (KMS): the sets above 2 parties at full registry width
 # (registry name, batch); mk_8party_kms at B=128, whose 3B = 384 TLev rows a
-# party stay under the 2-party set's 512. Their keygens run in worker
-# processes started at the top of main(), while the card runs the earlier
-# phases, and hand the keys over as the JAX key's numpy fields.
+# party stay under the 2-party set's 512. E6: the 16-party sets, which
+# neither package had run, at B=64 (3B = 192 TLev rows a KMS party). Their
+# keygens run in worker processes started at the top of smoke(), while the
+# card runs the earlier phases, and hand the keys over as the JAX key's
+# numpy fields.
 MULTI_SCHEME_SETS = (("mk_4party_ccs", 256), ("mk_8party_ccs", 256), ("mk_4party_kms", 256),
-                     ("mk_8party_kms", 128))
+                     ("mk_8party_kms", 128), ("mk_16party_ccs", 64), ("mk_16party_kms", 64))
 # the gadget fields of each scheme's parameter set
 GADGET_FIELDS = {"ccs": ("bs_decomp_length", "bs_log2_base"),
                  "kms": ("gsw_decomp_length", "gsw_log2_base", "lev_decomp_length",
                          "lev_log2_base", "uni_decomp_length", "uni_log2_base")}
-HANDED_FIELDS = {"ccs": ("d_sel", "f0_sel", "f1_sel", "pk_kern", "sk_kern", "ks_mats"),
-                 "kms": ("gsw_sel", "d_kern", "f0_kern", "f1_kern", "pk_kern", "sk_kern",
-                         "ks_mats")}
-KEYGEN_WAIT_S = 600  # E4/E5 wait at most this long for a keygen worker still running
-KEYGENS = {}  # name -> (worker process, its directory); "tmp": the directory they share
-PHASE_BOUND = 1 / 16  # max |phase - ideal| of a KMS gate, and of both at the test sets
-# E1: a CCS gate's noise std against tools/scheme_noise.ccs_noise_std, which
-# leaves out the steps' covariance through the mean of r (it adds, never removes)
-CCS_NOISE_BAND = (0.75, 1.5)
+KEYGEN_WAIT_S = 600  # E4-E6 wait at most this long for a keygen worker still running
 V1_BATCH = {"tfhe_128_tpu_fast": 64, "tfhe_128_tpu": 16}  # V1: the scan route's batch a set
 V_BATCH = 16  # V2, V3: the conv routes' batch
 CONV_FIELDS = {"ccs": ("d_kern", "f0_kern", "f1_kern"), "kms": ("gsw_kern",)}
@@ -524,11 +524,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    from torus_fhe_tpu_torch.tools import perf_comp
+
+    try:
+        return smoke()
+    finally:  # E4-E6's keygen workers
+        perf_comp.stop_keygens()
+
+
+def smoke() -> int:
+    """Every phase in order, E4-E6's keygen workers started first (one a
+    MULTI_SCHEME_SETS set, spawned, the CPU only, each writing its key into
+    a directory of one temporary directory), after a line with the host's
+    cores and that directory's free bytes."""
+    import os
+    import tempfile
+
     from torus_fhe_tpu_torch.boot import api, bootstrap, gates
     from torus_fhe_tpu_torch.core import params as P
     from torus_fhe_tpu_torch.core.torus import decode_message
     from torus_fhe_tpu_torch.lwe import lwe_noiseless_trivial
     from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+    from torus_fhe_tpu_torch.tools import perf_comp
 
     dev = torch.device(DEVICE)
     kind = torch.cuda.get_device_name(0)
@@ -540,7 +557,13 @@ def main() -> int:
     SMI = smi
     log("device", f"{kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
-    start_scheme_keygens()
+    tmp = tempfile.gettempdir()
+    log("E4-E6 keygens", f"host: {os.cpu_count()} cores, {shutil.disk_usage(tmp).free / 1e9:.1f} "
+        f"GB free in {tmp}")
+    perf_comp.start_keygens([(name, P.PARAMETER_REGISTRY[name](), SEED + 500 + i, ("fb",), None)
+                             for i, (name, _) in enumerate(MULTI_SCHEME_SETS)], prefix="e46_")
+    log("E4-E6 keygens", f"{len(MULTI_SCHEME_SETS)} worker processes started: "
+        f"{', '.join(name for name, _ in MULTI_SCHEME_SETS)}")
 
     # 2. build
     t = time.perf_counter()
@@ -742,9 +765,6 @@ def main() -> int:
         f"{MAIN_BATCH / statistics.mean(gate_s):.1f})")
 
     # P5's inputs: the fast set's cloud key file and the single-device gate's words
-    import os
-    import tempfile
-
     from torus_fhe_tpu_torch.utils import serialize
 
     p5_dir = tempfile.TemporaryDirectory(prefix="p5_")
@@ -860,6 +880,7 @@ def multikey(dev, rng) -> dict:
     from torus_fhe_tpu_torch.core.torus import decode_message
     from torus_fhe_tpu_torch.mk import boot3gen, gates3gen, keys3gen
     from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+    from torus_fhe_tpu_torch.tools import perf_comp
 
     names = ("blind_rotate", "blind_rotate_sel")
     res = {"launches": dict.fromkeys(names, 0), "err": dict.fromkeys(names, 0),
@@ -954,6 +975,16 @@ def multikey(dev, rng) -> dict:
         if n2[other] or not 3 + (parties == 8) <= n2[kernel] <= 3 + (parties == 8) * PROFILE_TRIES:
             raise AssertionError(f"{name} N2/N5: launches {n2}, want 3 (N5: one a trace) of {kernel}")
         res["launches"][kernel] += n2[kernel]
+        # tools/perf_comp's 3gen row on this key: one NAND, decrypt-checked, its kernel once
+        prow = perf_comp.row("3gen", main_ck, sks, B, 1, SEED + 800 + parties, warmup=False)
+        if not (prow["correct"] and prow["noise_ok"]):
+            raise AssertionError(f"perf_comp row {name}: {'; '.join(prow['fails'])}")
+        res["launches"][kernel] += prow["launches"][kernel]
+        log(f"perf_comp row {name}", f"NAND B={B}: {prow['min_s']:.3f} s = "
+            f"{prow['gates_per_s']:.1f} gates/s, {prow['wrong']} wrong, std "
+            f"{prow['boot_noise_std']:.5f}; {kernel} {prow['launches'][kernel]}x; key "
+            f"{prow['key_bytes']} B; bound {prow['bound_ms']:.2f} ms ({prow['bound_by']})")
+        print(json.dumps({"perf_comp": {name: prow}}), flush=True)
         if parties * params.lwe_size == TAIL_RING:  # the tail on a ring above 4,096
             from torus_fhe_tpu_torch.apps import mk_knn
 
@@ -1568,12 +1599,6 @@ def native_phase(dev) -> dict:
                           "product_s": t_prod}}
 
 
-def key_bytes(ck) -> int:
-    """Bytes of a cloud key's tensors on its device."""
-    return sum(v.numel() * v.element_size() for v in vars(ck).values()
-               if isinstance(v, torch.Tensor))
-
-
 def scheme_phases(dev, rng) -> dict:
     """E1-E3: the 1st-gen (CCS) and 2nd-gen (KMS) multikey schemes, torch ops
     on the card (neither kernel launches; the JAX package runs both outside
@@ -1592,6 +1617,7 @@ def scheme_phases(dev, rng) -> dict:
     from torus_fhe_tpu_torch import mk
     from torus_fhe_tpu_torch.core import params as P
     from torus_fhe_tpu_torch.mk import ccs, kms
+    from torus_fhe_tpu_torch.tools.perf_comp import CCS_NOISE_BAND, PHASE_BOUND, key_bytes
     from torus_fhe_tpu_torch.tools.scheme_noise import allowed_wrong, ccs_noise_std, phase_error
     from torus_fhe_tpu_torch.utils import serialize
 
@@ -1627,8 +1653,8 @@ def scheme_phases(dev, rng) -> dict:
         over = int((np.abs(rep.boot_noises) >= PHASE_BOUND).sum())
         if scheme is ccs:
             # the scheme's own noise puts 1/16 at ~2 std: the std is held to
-            # its prediction, the wrong counts to what that std allows
-            pred = ccs_noise_std(params)
+            # its prediction on this key, the wrong counts to what that std allows
+            pred = ccs_noise_std(params, ck, sks)
             allowed = allowed_wrong(B, pred * CCS_NOISE_BAND[1])
             ok = (max(wrong, rep.wrong_decryptions) <= allowed
                   and CCS_NOISE_BAND[0] <= err_std / pred <= CCS_NOISE_BAND[1])
@@ -1680,7 +1706,7 @@ def scheme_phases(dev, rng) -> dict:
                 f"ideal| {err_s:.5f}, std {std_s:.5f}; {t_slow:.3f} s (both parties through "
                 "the TLev rotate and the relinearisation)")
         # V2 / V3: the conv form of the same keygen against the fb form
-        allowed = allowed_wrong(V_BATCH, ccs_noise_std(params) * CCS_NOISE_BAND[1]) \
+        allowed = allowed_wrong(V_BATCH, ccs_noise_std(params, ck, sks) * CCS_NOISE_BAND[1]) \
             if scheme is ccs else 0
         rec["conv"] = conv_route("V2" if scheme is ccs else "V3", name, scheme, ck, ck_conv,
                                  cx, cy, keys, ~(x & y), allowed)
@@ -1800,10 +1826,10 @@ def ccs_split(ck, temp, B: int, tag: str, name: str, full: bool = True) -> dict:
     import dataclasses
 
     from torus_fhe_tpu_torch.mk import ccs
-    from torus_fhe_tpu_torch.ops import cuda_rotate
+    from torus_fhe_tpu_torch.tools import perf_comp
 
     params = ck.params
-    P, N, l = ck.parties, params.rlwe_polynomial_degree, params.bs_decomp_length
+    P, N = ck.parties, params.rlwe_polynomial_degree
     acc, bara = ccs.rotate_input(ccs.MU, temp, N, P, torch.int32)
     bara = bara.flatten(1)
     steps = bara.shape[1]
@@ -1815,13 +1841,8 @@ def ccs_split(ck, temp, B: int, tag: str, name: str, full: bool = True) -> dict:
     one = lambda: ccs.ccs_blind_rotate_fb(acc[:1], part, bara[:1, :64])
     one()
     host_s = min(sync_time(one)[1] for _ in range(3))
-    nl = (params.bs_log2_base + 8) // 8 if params.bs_log2_base > 8 else 1
-    # a contraction of one poly: l digit rows of N against 4 limb columns of N,
-    # each digit block; u and v one line a poly, w two
-    macs = steps * nl * B * (P + 1) * l * N * N * 4 * 4
-    moved = (3 * ck.d_sel.numel() + ck.pk_fb.numel() + ck.sk_fb.numel() + ck.ks_mats.numel()
-             + B * steps * 4 + 2 * B * (P + 1) * N * 4)
-    bound, by = cuda_rotate.bound_ms(2 * macs, cuda_rotate.INT8_OPS_PER_S, moved)
+    nl = perf_comp.digit_limbs(params.bs_log2_base)
+    bound, by = perf_comp.ccs_bound(ck, B)
     busy = None if busy_ms is None else busy_ms / 64
     rec = {"host_step_ms_b1": host_s / 64 * 1e3, "device_step_ms": busy, "bound_ms": bound,
            "bound_by": by}
@@ -1847,7 +1868,8 @@ def kms_split(ck, temp, B: int, tag: str, name: str, full: bool = True) -> dict:
     uni-product); host against device a TLev CMux step on a 64-step chunk,
     and the bound from shapes."""
     from torus_fhe_tpu_torch.mk import ccs, kms
-    from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+    from torus_fhe_tpu_torch.ops import fblock
+    from torus_fhe_tpu_torch.tools import perf_comp
 
     params = ck.params
     P, N, n = ck.parties, params.rlwe_polynomial_degree, params.lwe_size
@@ -1886,17 +1908,8 @@ def kms_split(ck, temp, B: int, tag: str, name: str, full: bool = True) -> dict:
     one = lambda: rot(chunk_acc[:1], ck.gsw_sel[n:n + 64], chunk_bara[:1])
     one()
     host_s = min(sync_time(one)[1] for _ in range(3))
-    nl = (gp.log2_base + 8) // 8 if gp.log2_base > 8 else 1
-    R, cols = geom.R, len(geom.cols)
-    rot_macs = n * nl * (B + (P - 1) * lev_rows) * R * N * N * cols  # the rotates' products
-    uni, lev_p = params.uni, params.tlev
-    nu = (uni.log2_base + 8) // 8 if uni.log2_base > 8 else 1
-    nv = (lev_p.log2_base + 8) // 8 if lev_p.log2_base > 8 else 1
-    relin_macs = P * (nu * B * (P + 1) * uni.decomp_length * N * N * 8 * (P + 2)
-                      + nu * B * uni.decomp_length * N * N * 8 * 2)
-    relin_macs += (P - 1) * nv * B * (P + 1) * llev * N * N * 16
-    moved = (ck.gsw_sel.numel() + ck.ks_mats.numel() + B * P * n * 4 + 2 * B * (P + 1) * N * 8)
-    bound, by = cuda_rotate.bound_ms(2 * (rot_macs + relin_macs), cuda_rotate.INT8_OPS_PER_S, moved)
+    nl, cols = perf_comp.digit_limbs(gp.log2_base), len(geom.cols)
+    bound, by = perf_comp.kms_bound(ck, B)
     busy = None if busy_ms is None else busy_ms / 64
     steps = (f"{rec['lev_step_ms']:.3f} ms a step; single-key rotate (B={B}) "
              f"{rec['single_step_ms']:.3f} ms a step; ") if full else ""
@@ -1910,206 +1923,67 @@ def kms_split(ck, temp, B: int, tag: str, name: str, full: bool = True) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
-def start_scheme_keygens() -> None:
-    """Start E4/E5's keygens: one worker process a MULTI_SCHEME_SETS set
-    (spawned, one torch thread each, the CPU only), each writing its key
-    into a directory of one temporary directory (KEYGENS)."""
-    import multiprocessing
-    import os
-    import tempfile
-
-    from torus_fhe_tpu_torch.core import params as P
-
-    tmp = tempfile.TemporaryDirectory(prefix="e45_")
-    KEYGENS["tmp"] = tmp
-    ctx = multiprocessing.get_context("spawn")
-    for i, (name, _) in enumerate(MULTI_SCHEME_SETS):
-        out_dir = os.path.join(tmp.name, name)
-        os.makedirs(out_dir)
-        proc = ctx.Process(target=scheme_keygen,
-                           args=(P.PARAMETER_REGISTRY[name](), SEED + 500 + i, out_dir),
-                           name=f"keygen {name}", daemon=True)
-        proc.start()
-        KEYGENS[name] = (proc, out_dir)
-    log("E4/E5 keygens", f"{len(MULTI_SCHEME_SETS)} worker processes started: "
-        f"{', '.join(name for name, _ in MULTI_SCHEME_SETS)}")
-
-
-def stop_scheme_keygens() -> None:
-    """End every keygen worker still running and remove their directory."""
-    for name, entry in list(KEYGENS.items()):
-        if name != "tmp" and entry[0].is_alive():
-            entry[0].kill()
-        if name != "tmp":
-            entry[0].join(10)
-    if "tmp" in KEYGENS:
-        KEYGENS["tmp"].cleanup()
-    KEYGENS.clear()
-
-
-def scheme_keygen(params, seed: int, out_dir: str) -> None:
-    """One E4/E5 keygen in a worker process, on the CPU: the parties' keys
-    and the cloud key of the CCS or KMS set ``params`` from a CPU generator seeded
-    with ``seed`` (the key a function of the seed, as on the card), saved
-    into ``out_dir`` as the fields of the JAX package's cloud key that
-    bridge.{ccs,kms}_cloud_key_from_numpy take (``HANDED_FIELDS``), the
-    parties' LWE and ring keys, and keygen.json: its wall seconds and the
-    shares of build_sel (the compact lines and their limb split),
-    tgsw_encrypt and keyswitch_keygen in it."""
-    import os
-
-    from torus_fhe_tpu_torch.core import params as P
-    from torus_fhe_tpu_torch.mk import ccs, kms
-    from torus_fhe_tpu_torch.ops import fblock
-
-    torch.set_num_threads(1)
-    scheme, short = (ccs, "ccs") if isinstance(params, P.SchemeParamsCCS) else (kms, "kms")
-    shares = {"build_sel": 0.0, "tgsw_encrypt": 0.0, "keyswitch_keygen": 0.0}
-
-    def timed(module, fn_name):  # the share of one function, in this process only
-        fn = getattr(module, fn_name)
-
-        def run(*args, **kwargs):
-            t = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                shares[fn_name] += time.perf_counter() - t
-        setattr(module, fn_name, run)
-
-    timed(fblock, "build_sel")
-    timed(scheme, "keyswitch_keygen")
-    if scheme is kms:
-        timed(kms, "tgsw_encrypt")
-    party = ccs.ccs_party_keygen if scheme is ccs else kms.kms_party_keygen
-    cloud = ccs.ccs_cloud_keygen if scheme is ccs else kms.kms_cloud_keygen
-    gen = torch.Generator().manual_seed(seed)
-    t0 = time.perf_counter()
-    sks = [party(gen, params, device="cpu") for _ in range(params.max_parties)]
-    ck = cloud(gen, sks, params, device="cpu")
-    t_keygen = time.perf_counter() - t0
-    t = time.perf_counter()
-    for field in HANDED_FIELDS[short]:
-        np.save(os.path.join(out_dir, f"{field}.npy"), getattr(ck, field).numpy())
-    np.save(os.path.join(out_dir, "lwe_keys.npy"), np.stack([sk.lwe.key.numpy() for sk in sks]))
-    np.save(os.path.join(out_dir, "rlwe_keys.npy"), np.stack([sk.rlwe.key.numpy() for sk in sks]))
-    rec = {"keygen_s": t_keygen, "shares_s": shares, "save_s": time.perf_counter() - t}
-    with open(os.path.join(out_dir, "keygen.json"), "w") as fh:
-        json.dump(rec, fh)
-
-
-def scheme_key_bytes(params, parties: int) -> int:
-    """Bytes of a CCS or KMS cloud key in its fb form on the card, from the
-    set's shapes: CCS the d1/f0/f1 lines (3 x P*n*l*2N*4), the expanded
-    public-key and shared-key blocks ((P+1) x 2N*l x 4*bs) and their packed
-    kernels; KMS the TGSW lines (P*n*2l*2N*16) and the packed uni, public
-    and shared kernels (8 limbs of l_uni x N each); both the keyswitch
-    tables (P x N*l_ks*(2^log2 - 1) x (n+1)*4 padded to a multiple of 8)."""
-    n, N = params.lwe_size, params.rlwe_polynomial_degree
-    ks = params.ks
-    tables = parties * N * ks.decomp_length * ((1 << ks.log2_base) - 1) * (-(-(n + 1) * 4 // 8) * 8)
-    if hasattr(params, "bs_decomp_length"):
-        l, bs = params.bs_decomp_length, min(128, N)
-        lines = 3 * parties * n * l * 2 * N * 4
-        blocks = (parties + 1) * 2 * N * l * 4 * bs
-        return lines + blocks + (parties + 1) * 4 * l * N + tables
-    lines = parties * n * 2 * params.gsw_decomp_length * 2 * N * 16
-    return lines + (4 * parties + 1) * 8 * params.uni_decomp_length * N + tables
-
-
 def multiparty_schemes(dev, rng) -> dict:
-    """E4 (CCS) and E5 (KMS) at 4 and 8 parties, full registry width
-    (MULTI_SCHEME_SETS), torch ops that launch neither kernel: per set the
-    keygen worker's key (its seconds, and the shares of build_sel,
-    tgsw_encrypt and keyswitch_keygen) placed on the card through
-    bridge.{ccs,kms}_cloud_key_from_numpy, its bytes equal to the ones from
-    shapes; one NAND batch over all four input pairs with the counts at 0,
+    """E4 (CCS) and E5 (KMS) at 4 and 8 parties and E6 (both) at 16, full
+    registry width (MULTI_SCHEME_SETS), torch ops that launch neither
+    kernel: per set the keygen worker's key (its seconds, and the shares of
+    build_sel, tgsw_encrypt and keyswitch_keygen) placed on the card
+    through bridge.{ccs,kms}_cloud_key_from_numpy (perf_comp.take_key), its
+    bytes equal to the ones from shapes; one NAND batch over all four input
+    pairs through tools/perf_comp.row, with the counts at 0 before it:
     decrypted, its noise from the same batch (CCS: the std within
-    CCS_NOISE_BAND of ccs_noise_std and the wrong count under what that
-    allows; KMS: 0 wrong and max |phase - ideal| < PHASE_BOUND), no kernel
-    launch, the int8 products (CCS: steps x (P+3) + P), wall seconds,
-    gates/s, peak memory, the host/device split of a CMux step on a 64-step
-    chunk and the bound from shapes. One ``routes`` line a set; returns the
-    records."""
-    import os
-
-    from torus_fhe_tpu_torch import bridge, mk
+    CCS_NOISE_BAND of ccs_noise_std on the key and the wrong count under
+    what that allows; KMS: 0 wrong and max |phase - ideal| < PHASE_BOUND),
+    no kernel launch, the int8 products (CCS: steps x (P+3) + P), wall
+    seconds, gates/s, peak memory, the host/device split of a CMux step on
+    a 64-step chunk and the bound from shapes. One ``routes`` line a set;
+    returns the records."""
+    from torus_fhe_tpu_torch import mk
     from torus_fhe_tpu_torch.core import params as P
-    from torus_fhe_tpu_torch.mk import ccs, kms
-    from torus_fhe_tpu_torch.tools.scheme_noise import allowed_wrong, ccs_noise_std, phase_error
+    from torus_fhe_tpu_torch.mk import ccs
+    from torus_fhe_tpu_torch.tools import perf_comp
 
     routes = {}
     for i, (name, B) in enumerate(MULTI_SCHEME_SETS):
-        scheme, short = (ccs, "ccs") if name.endswith("_ccs") else (kms, "kms")
-        tag = "E4" if scheme is ccs else "E5"
         params = P.PARAMETER_REGISTRY[name]()
-        parties, n = params.max_parties, params.lwe_size
-        proc, out_dir = KEYGENS[name]
-        t = time.perf_counter()
-        proc.join(KEYGEN_WAIT_S)
-        t_wait = time.perf_counter() - t
-        if proc.is_alive() or proc.exitcode != 0:
-            raise AssertionError(f"{tag} {name}: the keygen worker "
-                                 + ("did not end" if proc.is_alive() else
-                                    f"exited with code {proc.exitcode}"))
-        with open(os.path.join(out_dir, "keygen.json")) as fh:
-            made = json.load(fh)
-        load = lambda f: np.load(os.path.join(out_dir, f"{f}.npy"), mmap_mode="r")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        to_card = getattr(bridge, f"{short}_cloud_key_from_numpy")
-        ck, t_card = sync_time(lambda: to_card(params, parties, device=dev,
-                                               **{f: load(f) for f in HANDED_FIELDS[short]}))
-        sks = bridge.mk_secret_keys_from_numpy(params, load("lwe_keys"), load("rlwe_keys"),
-                                               device=dev)
-        shutil.rmtree(out_dir)
-        have, want_bytes = key_bytes(ck), scheme_key_bytes(params, parties)
+        scheme = "ccs" if isinstance(params, P.SchemeParamsCCS) else "kms"
+        parties = params.max_parties
+        tag = "E6" if parties == 16 else "E4" if scheme == "ccs" else "E5"
+        ck, sks, made, t_wait, t_card = perf_comp.take_key(name, params, dev, KEYGEN_WAIT_S)
+        have, want_bytes = perf_comp.key_bytes(ck), perf_comp.scheme_key_bytes(params, parties)
         if have != want_bytes:
             raise AssertionError(f"{tag} {name}: {have} key bytes on the card, {want_bytes} from "
                                  "shapes")
-        keys = [sk.lwe for sk in sks]
-        gen = torch.Generator().manual_seed(SEED + 600 + i)
-        pairs = torch.from_numpy(rng.permutation(np.arange(B) % 4)).to(dev)
-        x, y = pairs >= 2, pairs % 2 == 1
-        cx, cy = mk.mk_encrypt(gen, keys, x, params), mk.mk_encrypt(gen, keys, y, params)
-        out, t_nand, got = scheme_nand(f"{tag} {name}", scheme, ck, cx, cy)
-        peak = torch.cuda.max_memory_allocated()
-        steps = parties * n
-        wrong, err_max, err_std, over = phase_error(out, keys, ~(x & y), PHASE_BOUND)
-        if scheme is ccs:
-            pred = ccs_noise_std(params)
-            allowed = allowed_wrong(B, pred * CCS_NOISE_BAND[1])
-            ok = wrong <= allowed and CCS_NOISE_BAND[0] <= err_std / pred <= CCS_NOISE_BAND[1]
-            gate = (f"std {err_std / pred:.3f}x the predicted {pred:.5f} within {CCS_NOISE_BAND}, "
-                    f"{wrong} wrong at most {allowed}")
-        else:
-            ok = wrong == 0 and err_max < PHASE_BOUND
-            gate = f"{wrong} wrong, max |phase - ideal| {err_max:.5f} under {PHASE_BOUND}"
+        rec = perf_comp.row(scheme, ck, sks, B, 1, SEED + 600 + i, warmup=False)
         shares = ", ".join(f"{k} {v:.1f} s" for k, v in made["shares_s"].items())
         log(f"{tag} {name}", f"keygen worker {made['keygen_s']:.2f} s ({shares}; saved in "
-            f"{made['save_s']:.2f} s), waited {t_wait:.2f} s, onto the card {t_card:.2f} s; key "
-            f"on the card {have / 1e9:.3f} GB (== from shapes); NAND B={B} (all four input "
-            f"pairs) {t_nand:.3f} s = {B / t_nand:.1f} gates/s, {steps} CMux steps "
-            f"({t_nand / steps * 1e3:.3f} ms a step); {wrong} wrong; max |phase - ideal| "
-            f"{err_max:.5f}, {over} at or over {PHASE_BOUND}, std {err_std:.5f}; blind_rotate 0x, "
-            f"blind_rotate_sel 0x, int8 products {got['int8_matmul']}; peak memory "
-            f"{peak / 1e9:.2f} GB; held to: {gate}: {'met' if ok else 'NOT MET'} [{SMI}]")
-        if not ok:
-            raise AssertionError(f"{tag} {name}: {gate} not met")
+            f"{made['save_s']:.2f} s, {made['npy_bytes'] / 1e9:.2f} GB of .npy), waited {t_wait:.2f} s, onto the card {t_card:.2f} s; key "
+            f"on the card {have / 1e9:.3f} GB = {have} B (== from shapes); NAND B={B} (all four "
+            f"input pairs) {rec['min_s']:.3f} s = {rec['gates_per_s']:.1f} gates/s, "
+            f"{rec['steps']} CMux steps ({rec['step_ms']:.3f} ms a step); {rec['wrong']} wrong; "
+            f"max |phase - ideal| {rec['phase_err_max']:.5f}, {rec['over_bound']} at or over "
+            f"{perf_comp.PHASE_BOUND}, std {rec['boot_noise_std']:.5f}; blind_rotate "
+            f"{rec['launches']['blind_rotate']}x, blind_rotate_sel "
+            f"{rec['launches']['blind_rotate_sel']}x, int8 products {rec['int8_products']}; peak "
+            f"memory {rec['peak_bytes'] / 1e9:.2f} GB; held to: {rec['gate']}"
+            + (f" (expected over keys {rec['predicted_std_expected']:.5f})" if scheme == "ccs"
+               else "") + f": {'met' if rec['correct'] and rec['noise_ok'] else 'NOT MET'} "
+            f"[{SMI}]")
+        if not (rec["correct"] and rec["noise_ok"]):
+            raise AssertionError(f"{tag} {name}: {'; '.join(rec['fails'])}; {rec['gate']}")
+        keys = [sk.lwe for sk in sks]
+        gen = torch.Generator().manual_seed(SEED + 700 + i)
+        pairs = torch.from_numpy(rng.permutation(np.arange(B) % 4)).to(dev)
+        cx, cy = (mk.mk_encrypt(gen, keys, v, params) for v in (pairs >= 2, pairs % 2 == 1))
         temp = mk.mk_lwe_noiseless_trivial(ccs.MU, params.lwe, parties, (B,), device=dev) - cx - cy
-        split = (ccs_split if scheme is ccs else kms_split)(ck, temp, B, tag, name, full=False)
-        rec = {"route": "torch ops (F-block products, 32-bit)" if scheme is ccs else
-               "torch ops (64-bit F-block scan, Toeplitz products)", **got, "gates": 1,
-               "batch": B, "keygen_s": made["keygen_s"], "keygen_shares_s": made["shares_s"],
-               "key_to_card_s": t_card, "key_bytes": have, "nand_s": t_nand,
-               "gates_per_s": B / t_nand, "step_ms": t_nand / steps * 1e3, "peak_bytes": peak,
-               "wrong": wrong, "phase_err_max": err_max, "over_bound": over,
-               "boot_noise_std": err_std, **split}
-        if scheme is ccs:
-            rec["predicted_std"] = pred
+        split = (ccs_split if scheme == "ccs" else kms_split)(ck, temp, B, tag, name, full=False)
+        rec = {"route": "torch ops (F-block products, 32-bit)" if scheme == "ccs" else
+               "torch ops (64-bit F-block scan, Toeplitz products)", **rec, "gates": 1,
+               "keygen_s": made["keygen_s"], "keygen_shares_s": made["shares_s"],
+               "key_to_card_s": t_card, "nand_s": rec["min_s"], **split}
         print(json.dumps({"routes": {name: rec}}), flush=True)
         routes[name] = rec
-        del ck, sks, cx, cy, out, temp
+        del ck, sks, cx, cy, temp
         torch.cuda.empty_cache()
     return routes
 
@@ -3063,7 +2937,4 @@ def mk_knn_phase(dev, rng, routes) -> dict:
 
 
 if __name__ == "__main__":
-    try:
-        sys.exit(main())
-    finally:
-        stop_scheme_keygens()
+    sys.exit(main())

@@ -124,3 +124,20 @@ def test_sel_plan_takes_what_the_expanded_plan_takes():
     for B, g in ((4, geom._replace(N=32, bs=32, nb=1, D=2)), (0, geom)):
         with pytest.raises(ValueError):
             cuda_rotate.sel_plan(B, g, l, 132)
+
+
+def test_kernel_chunk_at_the_16_party_kms_geometry():
+    """expand_kernel_chunk gathers block by block into one buffer: still
+    byte-equal to the kernel layout of expand_fblock_chunk at the widest
+    chunk the registry expands (mk_16party_kms: 64 bits, R = 10, 16 limb
+    columns), on 2 steps of random lines."""
+    from torus_fhe_tpu_torch.core.params import PARAMETER_REGISTRY
+    from torus_fhe_tpu_torch.mk import kms
+
+    params = PARAMETER_REGISTRY["mk_16party_kms"]()
+    geom = kms.kms_fb_geometry(params, 2)
+    assert geom.R == 10 and len(geom.cols) == 16
+    lines = torch.from_numpy(np.random.default_rng(16).integers(
+        -128, 128, (2, geom.R, 2 * geom.N, len(geom.cols)), dtype=np.int8))
+    want = fblock.to_kernel_layout(fblock.expand_fblock_chunk(lines, geom), geom)
+    assert torch.equal(fblock.expand_kernel_chunk(lines, geom), want)

@@ -225,15 +225,19 @@ def from_kernel_layout(key: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
 def expand_kernel_chunk(sel_chunk: torch.Tensor, geom: FBlockGeometry) -> torch.Tensor:
     """Expand compact lines straight into the kernel layout on their device:
     (cs, R, 2N, ncols) -> (cs, D, ncols*bs, R*bs), byte-equal to
-    ``to_kernel_layout(expand_fblock_chunk(sel_chunk))``."""
+    ``to_kernel_layout(expand_fblock_chunk(sel_chunk))``. The output is
+    allocated once and each key block m is gathered into it on its own, so
+    a chunk is alive once, beside one block's gather (1/D of it)."""
     cs, R, two_n, ncols = sel_chunk.shape
     if (R, two_n, ncols) != (geom.R, 2 * geom.N, len(geom.cols)):
         raise ValueError(f"lines {tuple(sel_chunk.shape)} do not match {geom}")
     D, bs = geom.D, geom.bs
-    idx = _step_plan(geom, sel_chunk.device).expand
-    g = sel_chunk.index_select(2, idx).reshape(cs, R, D, bs, bs, ncols)
-    g = g.permute(0, 2, 5, 4, 1, 3)  # (cs, m, ncols, q, R, p)
-    return g.reshape(cs, D, ncols * bs, R * bs)
+    idx = _step_plan(geom, sel_chunk.device).expand.reshape(D, bs * bs)
+    out = torch.empty((cs, D, ncols * bs, R * bs), dtype=sel_chunk.dtype, device=sel_chunk.device)
+    for m in range(D):
+        g = sel_chunk.index_select(2, idx[m]).reshape(cs, R, bs, bs, ncols)
+        out[:, m].view(cs, ncols, bs, R, bs).copy_(g.permute(0, 4, 3, 1, 2))  # (cs, ncols, q, R, p)
+    return out
 
 
 def build_rotate_key(samples: np.ndarray, geom: FBlockGeometry, device,
