@@ -135,12 +135,25 @@ read just after:
   (fast_form=False: the lines of the raw samples, no kernel) at mk_2party_3gen,
   300 trials, its key through cache_path, std against the committed exact
   envelope, the ms a step split into host and device; N4, the CCS and KMS
-  report steps on E1's and E2's keys (256 trials: their noise check); N5, a
-  device trace of one bootsAND at the fast set (B=1024) and one 8-party AND
-  (B=256), the rotate kernel the largest category; N6, run_mk_pipeline at
+  report steps on E1's and E2's keys (256 trials: their noise check); N5,
+  tools/profile_trace.trace of one bootsAND at the fast set (B=1024; this
+  is B3, so the split must also hold the keyswitch's int8 GEMM) and of one
+  8-party AND (B=256), one untraced call and then a whole trace, the rotate
+  kernel the largest category, the traced window's busy share; N6, run_mk_pipeline at
   mk_4party_3gen (compact key) on a synthetic cardio-format CSV, every
   prediction equal to plaintext_oracle and the threshold tail on ring 4 n.
   N2, N4 and N5 run where their keys are held; N1, N3 and N6 after E5;
+- the main path's measurement tools, right after N5, each with the counts
+  at 0 before it and read after, each line with the card's name and power
+  limit: B1, tools/bench.measure on the fast set's key at B=4096 and on
+  tfhe_128_tpu's at B=1024 (the AND and the 8-NAND chain decrypt-checked,
+  dispatched and chained gates/s, the p50 at B=1, 27 launches of
+  blind_rotate, 17 of them timed; bench.py's JSON line); B2, tools/profile's
+  table at tfhe_128 (N=1024, l=3, no body drop: 8 limb columns) on a key of
+  its own, freed after: the full key's kernel == its plain version on one
+  AND batch of B=1024, timed beside its bound, then the rows at B=1024 (92
+  launches; the 8-bit adder's words decrypt-checked); B3 is N5's first
+  trace;
 - the key forms and routes the user chooses (boot/bootstrap.py's
   ``forms=`` and ``set_rotate_backend``), each with the counts at 0 before
   it and each line with the card's name and power limit: V1, the
@@ -291,7 +304,15 @@ PRE_KS_GATE = 1e-4
 N3_SET, N3_TRIALS = "mk_2party_3gen", 300  # the exact route
 N3_ENVELOPE = 0.01625  # measurements/log__mk_2party_3gen_trials-300_exact.log
 N4_TRIALS = 256  # the CCS and KMS report steps
-PROFILE_TRIES = 3  # N5: traces taken at most while the profiler drops records of the body
+# B1-B3: the main path's measurement tools. B1 tools/bench.measure (batch a
+# set): first call 1 + 4 dispatched + 8 warm-up chain + 8 chain + 1 warm-up
+# B=1 + 5 at B=1 launches, 4 + 8 + 5 of them in the timed windows
+BENCH_BATCH = {"tfhe_128_tpu_fast": 4096, "tfhe_128_tpu": 1024}
+BENCH_LAUNCHES, BENCH_TIMED = 27, 17
+# B2 tools/profile at tfhe_128 (set, batch, iters): XOR 1 + 3, half adder
+# 2 x (1 + 3), the adder 40 gates x (1 + 1) launches
+PROFILE_SET = ("tfhe_128", 1024, 3)
+PROFILE_LAUNCHES = 4 + 8 + 80
 N6_KNN = ("mk_4party_3gen", 4, 5, 2, 8, 3)  # set, parties, train rows, test rows, width, k
 # P5: the mesh across processes on the one card: (backend, ranks, tasks) of
 # each group, spawned in turn; every rank runs on cuda:0, so the groups of
@@ -446,52 +467,38 @@ def noise_3gen(name: str, sks, ck, gen, rng, dev) -> dict:
     return counts
 
 
-def profile_phase(tag: str, rotate: str, fn) -> dict:
-    """N5: one call of fn under utils.profiling.device_trace. The rotate
-    kernel's category ``rotate`` must be the largest, and the categories
-    must add up to the device total within 1%. A trace that lost records of
-    the body (a guard of device_trace kept none of its records: the loss
-    reached past it) or holds no record of the rotate kernel though the
-    kernel launched is logged with its guards' records and taken again, up
-    to PROFILE_TRIES traces; the phase fails when none was whole. Prints a
-    ``profile`` JSON line; returns the launches of each kernel over all
-    traces."""
+def profile_phase(tag: str, rotate: str, fn) -> tuple:
+    """N5: tools/profile_trace.trace of fn, one untraced call and then
+    traces under utils.profiling.device_trace until one is whole (it kept
+    its body's records and the rotate kernel's), up to profile_trace.TRIES.
+    The rotate kernel's category ``rotate`` must be the largest, and the
+    categories must add up to the device total within 1%. Prints a
+    ``profile`` JSON line; returns (the summary, the launches of each
+    kernel over the untraced call and all traces)."""
     import tempfile
 
-    from torus_fhe_tpu_torch.utils import profiling
+    from torus_fhe_tpu_torch.tools import profile_trace
 
-    def traced():
-        with tempfile.TemporaryDirectory() as tmp:
-            with profiling.device_trace(tmp):
-                fn()
-                torch.cuda.synchronize()
-            guards = {path: profiling.guard_records(profiling._load(path))
-                      for path in profiling._trace_files(tmp)}
-            return profiling.summarize_trace(tmp, top=5), guards
-
-    total_counts = dict.fromkeys(("blind_rotate", "blind_rotate_sel"), 0)
-    for attempt in range(1, PROFILE_TRIES + 1):
-        (s, guards), counts, wall = launched(traced)
-        total_counts = {k: total_counts[k] + counts[k] for k in counts}
-        cats, total = s["by_category"], s["total_device_us"]
-        whole = s["intact"] and (rotate in cats or not any(counts.values()))
-        if whole:
-            break
-        log(tag, f"trace {attempt}: intact {s['intact']}, launched {counts} in it; recorded "
-            f"{cats}; guards' records (kept, launched) {list(guards.values())}")
+    with tempfile.TemporaryDirectory() as tmp:
+        s, counts, wall = launched(lambda: profile_trace.trace(fn, DEVICE, tmp, rotate))
+    cats, total, share = s["by_category"], s["total_device_us"], s["busy_share"]
     print(json.dumps({"profile": tag, "total_device_us": total, "by_category": cats,
-                      "traces": attempt, "intact": s["intact"], "guards": list(guards.values()),
-                      "top": [[name[:80], us, pct] for name, us, pct in s["by_op"]]}), flush=True)
-    log(tag, f"device total {total / 1e3:.3f} ms of {wall * 1e3:.1f} ms wall; " + ", ".join(
-        f"{c} {us / 1e3:.3f} ms" for c, us in cats.items()))
-    if not whole:
-        raise AssertionError(f"{tag}: all {attempt} traces lost records of the body "
+                      "window_us": s["window_us"], "busy_share": share, "traces": s["traces"],
+                      "intact": s["intact"], "guards": s["guards"],
+                      "top": [[name[:80], us, pct] for name, us, pct in s["by_op"][:5]]}),
+          flush=True)
+    if not s["whole"] or share is None:
+        raise AssertionError(f"{tag}: all {s['traces']} traces lost records of the body "
                              f"(intact {s['intact']}) or the rotate kernel's: {cats}")
+    log(tag, f"{s['traces']} trace(s); device total {total / 1e3:.3f} ms of a "
+        f"{s['window_us'] / 1e3:.3f} ms window: busy share {share:.4f}; " + ", ".join(
+            f"{c} {us / 1e3:.3f} ms" for c, us in cats.items())
+        + f"; {wall:.1f} s; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{SMI}]")
     if not cats or max(cats, key=cats.get) != rotate:
         raise AssertionError(f"{tag}: the largest category is not {rotate}: {cats}")
     if abs(sum(cats.values()) - total) > 0.01 * total:
         raise AssertionError(f"{tag}: categories add to {sum(cats.values())}, total {total}")
-    return total_counts
+    return s, counts
 
 
 def scan_split(sel, bara, acc, args):
@@ -644,7 +651,8 @@ def smoke() -> int:
 
     # 5. second geometry: tfhe_128_tpu (N=1024, k=1, l=3)
     l3 = P.tfhe_parameters_128_tpu()
-    sk3, ck3 = api.make_key_pair(torch.Generator().manual_seed(SEED + 1), l3, device=dev)
+    (sk3, ck3), t3_keygen = sync_time(lambda: api.make_key_pair(
+        torch.Generator().manual_seed(SEED + 1), l3, device=dev))
     x3 = torch.from_numpy(rng.integers(0, 2, 64).astype(bool)).to(dev)
     y3 = torch.from_numpy(rng.integers(0, 2, 64).astype(bool)).to(dev)
     c3x, c3y = api.encrypt(gen, sk3, x3), api.encrypt(gen, sk3, y3)
@@ -659,7 +667,6 @@ def smoke() -> int:
     scan_routes = {}
     v1_launches = scan_route("tfhe_128_tpu", sk3, ck3, x3[:V1_BATCH["tfhe_128_tpu"]],
                              y3[:V1_BATCH["tfhe_128_tpu"]], gen, scan_routes)
-    del ck3
 
     # 6. times (informational) and the kernel at the main path's shapes
     t = cx + cy + lwe_noiseless_trivial(gates.EIGHTH[-1], fast.lwe, (MAIN_BATCH,), device=dev)
@@ -733,10 +740,24 @@ def smoke() -> int:
         f"{MAIN_BATCH / (ms / 1e3):.1f} rotations/s; p50 bootsAND latency B=1 "
         f"{statistics.median(lat) * 1e3:.2f} ms; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    n_launches = profile_phase(f"N5 tfhe_128_tpu_fast bootsAND B={MAIN_BATCH}",
-                               "blind_rotate (expanded key)", lambda: gates.gate_and(ck, cx, cy))
-    if n_launches["blind_rotate_sel"] or not 1 <= n_launches["blind_rotate"] <= PROFILE_TRIES:
-        raise AssertionError(f"N5: launches {n_launches}, want one of blind_rotate a trace")
+    # N5, which is B3: tools/profile_trace on this key; the split holds the keyswitch too
+    torch.cuda.reset_peak_memory_stats()
+    s5, n_launches = profile_phase(f"N5/B3 tfhe_128_tpu_fast bootsAND B={MAIN_BATCH}",
+                                   "blind_rotate (expanded key)",
+                                   lambda: gates.gate_and(ck, cx, cy))
+    if n_launches != {"blind_rotate": 1 + s5["traces"], "blind_rotate_sel": 0}:
+        raise AssertionError(f"N5/B3: launches {n_launches}, want {1 + s5['traces']} of "
+                             "blind_rotate (one untraced call, one a trace)")
+    if "int8 GEMM" not in s5["by_category"]:
+        raise AssertionError(f"N5/B3: no keyswitch int8 GEMM in {s5['by_category']}")
+
+    # B1-B3: the main path's measurement tools, tools/{bench,profile,profile_trace}.py
+    b_launches = bench_phase("tfhe_128_tpu_fast", sk, ck, t_keygen)
+    b_launches += bench_phase("tfhe_128_tpu", sk3, ck3, t3_keygen)
+    del sk3, ck3, c3x, c3y, t3
+    torch.cuda.empty_cache()
+    n, b2_err = profile_table(dev)
+    b_launches += n
 
     # P4: the batch-sharded bootsAND over two mesh slots == the single-device one
     from torus_fhe_tpu_torch.parallel import make_mesh
@@ -829,8 +850,9 @@ def smoke() -> int:
          "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264",
          "launches": launches + sh_launches + mkr["launches"]["blind_rotate"]
          + pipe["launches"]["blind_rotate"] + circ["blind_rotate"] + aux_launches
-         + n_launches["blind_rotate"] + p5["blind_rotate"] + v1_launches,
-         "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"]),
+         + n_launches["blind_rotate"] + p5["blind_rotate"] + v1_launches + b_launches,
+         "max_abs_err": max(max_err, mkr["err"]["blind_rotate"], pipe["err"]["blind_rotate"],
+                            b2_err),
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": None},
         {"name": "blind_rotate_sel", "route": "cuda",
@@ -848,6 +870,83 @@ def smoke() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def bench_phase(name: str, sk, ck, keygen_s: float) -> int:
+    """B1: tools/bench.measure on a key held here at BENCH_BATCH[name]
+    gates, with the counts at 0 before it and read after: the decrypt checks
+    of the AND and the NAND chain, the rates, the p50 at B=1, and exactly
+    BENCH_LAUNCHES launches of blind_rotate, BENCH_TIMED of them in the
+    timed windows. Prints the tool's JSON line with a ``bench`` tag;
+    returns the launches."""
+    from torus_fhe_tpu_torch.tools import bench
+
+    B = BENCH_BATCH[name]
+    torch.cuda.reset_peak_memory_stats()
+    (rec, _), counts, wall = launched(lambda: bench.measure(sk, ck, *bench.inputs(B)))
+    tag = "fast" if name == "tfhe_128_tpu_fast" else "l3"
+    print(json.dumps({"bench": f"B1 {name} B={B}",
+                      **bench.result(rec, tag, DEVICE, keygen_s, "keygen (smoke)")}), flush=True)
+    want = {"blind_rotate": BENCH_LAUNCHES, "blind_rotate_sel": 0}
+    if counts != want or rec["kernel_launches"] != BENCH_TIMED:
+        raise AssertionError(f"B1 {name}: launches {counts} ({rec['kernel_launches']} timed), "
+                             f"want {want} ({BENCH_TIMED} timed)")
+    log(f"B1 bench {name}", f"B={B}: AND and {rec['chain_len']}-NAND chain decrypt; chained "
+        f"{rec['chained_gates_per_s']:.1f} gates/s, dispatched {rec['dispatched_gates_per_s']:.1f}"
+        f", p50 B=1 {rec['p50_single_bootstrap_ms']:.3f} ms, first call {rec['compile_s']:.3f} s;"
+        f" {counts['blind_rotate']} launches; {wall:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{SMI}]")
+    return counts["blind_rotate"]
+
+
+def profile_table(dev) -> tuple:
+    """B2: tools/profile's table at PROFILE_SET on a key of its own (the
+    first run of that set on the card), freed after: the full key's kernel
+    against its plain version on one mod-switched AND batch (word for word,
+    timed, beside the bound from shapes), then the rows with the counts at
+    0 before them and read after (exactly PROFILE_LAUNCHES launches of
+    blind_rotate; the adder's words decrypt-checked inside). Returns (the
+    rows' launches, the kernel's max |diff|)."""
+    from torus_fhe_tpu_torch.boot import api, bootstrap, gates
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.core.torus import decode_message
+    from torus_fhe_tpu_torch.lwe import lwe_noiseless_trivial
+    from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
+    from torus_fhe_tpu_torch.tools import profile
+
+    name, B, iters = PROFILE_SET
+    params = P.PARAMETER_REGISTRY[name]()
+    torch.cuda.reset_peak_memory_stats()
+    sk, ck, keygen_s = profile.make_keys(params, dev)
+    fb, geom = ck.bootstrap_key.fb, bootstrap.bk_geometry(params)
+    gen, rng = torch.Generator().manual_seed(SEED + 7), np.random.default_rng(SEED + 7)
+    cx, cy = (api.encrypt(gen, sk, torch.from_numpy(rng.integers(0, 2, B) == 1)) for _ in range(2))
+    t = cx + cy + lwe_noiseless_trivial(gates.EIGHTH[-1], params.lwe, (B,), device=dev)
+    N2 = 2 * params.rlwe_polynomial_degree
+    bara, sv = decode_message(t.a, N2), (gates.EIGHTH[1], decode_message(t.b, N2))
+    args = (geom, params.bs_decomp_length, params.bs_log2_base, params.tgsw.offset)
+    plain, plain_s = sync_time(lambda: fblock.blind_rotate_fblock(None, fb, bara, *args,
+                                                                  stepvec=sv))
+    err = max_diff(cuda_rotate.blind_rotate_cuda(None, fb, bara, *args, stepvec=sv), plain)
+    if err:
+        raise AssertionError(f"B2 {name}: kernel != plain on the full key: max |diff| {err}")
+    ms = event_ms(lambda: cuda_rotate.blind_rotate_cuda(None, fb, bara, *args, stepvec=sv), 3)
+    bound, bound_by = cuda_rotate.rotate_bound_ms(B, geom, fb.numel())
+    log(f"B2 {name}", f"keygen {keygen_s:.2f} s, fb {tuple(fb.shape)} = {fb.numel() / 1e9:.2f} GB"
+        f" ({len(geom.cols)} limb columns); kernel == plain on the full key B={B} stepvec; kernel"
+        f" {ms:.3f} ms, plain {plain_s * 1e3:.1f} ms cold, bound {bound:.3f} ms ({bound_by})")
+    del plain, t, bara, sv, cx, cy
+    (rows, _), counts, wall = launched(lambda: profile.measure(sk, ck, B, iters))
+    print(profile.table(f"# device={SMI} params={name} batch={B}",
+                        [("keygen(sk+bk+ksk)", keygen_s, 1 / keygen_s)] + rows), flush=True)
+    want = {"blind_rotate": PROFILE_LAUNCHES, "blind_rotate_sel": 0}
+    if counts != want:
+        raise AssertionError(f"B2 {name}: launches {counts}, want {want}")
+    log(f"B2 {name}", f"{len(rows) + 1} rows, adder words decrypt; {counts['blind_rotate']} "
+        f"launches; {wall:.1f} s; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{SMI}]")
+    del sk, ck, fb
+    torch.cuda.empty_cache()
+    return counts["blind_rotate"], err
 
 
 def mesh_devices(k: int) -> list:
@@ -968,12 +1067,15 @@ def multikey(dev, rng) -> dict:
             f"peak memory {peak / 1e9:.2f} GB")
         # N2: the noise, through the harness's report step on this key
         n2 = noise_3gen(name, sks, main_ck, gen, rng, dev)
+        want = 3
         if parties == 8:
-            n5 = profile_phase(f"N5 {name} AND B={B}", "blind_rotate_sel (compact key)",
-                               lambda: gates3gen.mk_gate_and(main_ck, ct, ct_true))
+            s5, n5 = profile_phase(f"N5 {name} AND B={B}", "blind_rotate_sel (compact key)",
+                                   lambda: gates3gen.mk_gate_and(main_ck, ct, ct_true))
             n2 = {k: n2[k] + n5[k] for k in names}
-        if n2[other] or not 3 + (parties == 8) <= n2[kernel] <= 3 + (parties == 8) * PROFILE_TRIES:
-            raise AssertionError(f"{name} N2/N5: launches {n2}, want 3 (N5: one a trace) of {kernel}")
+            want += 1 + s5["traces"]
+        if n2[other] or n2[kernel] != want:
+            raise AssertionError(f"{name} N2/N5: launches {n2}, want {want} of {kernel} (N5: "
+                                 "one untraced call, one a trace)")
         res["launches"][kernel] += n2[kernel]
         # tools/perf_comp's 3gen row on this key: one NAND, decrypt-checked, its kernel once
         prow = perf_comp.row("3gen", main_ck, sks, B, 1, SEED + 800 + parties, warmup=False)

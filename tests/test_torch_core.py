@@ -192,7 +192,8 @@ def test_package_never_imports_jax():
             " 'torus_fhe_tpu_torch.boot.pack', 'torus_fhe_tpu_torch.cli',"
             " 'torus_fhe_tpu_torch.__main__', 'torus_fhe_tpu_torch.mk.ccs',"
             " 'torus_fhe_tpu_torch.mk.kms', 'torus_fhe_tpu_torch.utils.noise',"
-            " 'torus_fhe_tpu_torch.utils.profiling'}"
+            " 'torus_fhe_tpu_torch.utils.profiling', 'torus_fhe_tpu_torch.tools.bench',"
+            " 'torus_fhe_tpu_torch.tools.profile', 'torus_fhe_tpu_torch.tools.profile_trace'}"
             " <= set(sys.modules)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

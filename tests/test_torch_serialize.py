@@ -11,6 +11,7 @@ Tolerance: none, every comparison is word for word.
 
 import dataclasses
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -303,3 +304,30 @@ def test_loaders_default_to_the_card(tmp_path, jax_single, jax_mk, loader):
     leaf = {"load_secret_key": lambda k: k.key.key, "load_cloud_key": lambda k: k.keyswitch_key.mat,
             "load_lwe": lambda k: k.a, "load_mk_cloud_key": lambda k: k.ks_mat}[loader](got)
     assert leaf.device.type == "cpu"
+
+
+def test_a_write_that_fails_leaves_no_file(tmp_path, monkeypatch):
+    """A file is written whole or not at all: ``np.savez_compressed`` made
+    to raise after writing part of it leaves nothing at the path and no
+    ``.tmp`` beside it, and an older file at the path stays as it was."""
+    params = tparams.test_parameters(n=16, N=64)
+    sk, other = (api.make_secret_key(torch.Generator().manual_seed(s), params, device="cpu")
+                 for s in (5, 6))
+    path = str(tmp_path / "secret.key")
+    real = np.savez_compressed
+
+    def torn(f, **arrays):
+        f.write(b"PK\x03\x04 the first bytes of a zip")
+        raise OSError("no space left on device")
+
+    monkeypatch.setattr(np, "savez_compressed", torn)
+    with pytest.raises(OSError, match="no space"):
+        ser.save_secret_key(path, sk)
+    assert os.listdir(tmp_path) == []
+    monkeypatch.setattr(np, "savez_compressed", real)
+    ser.save_secret_key(path, sk)
+    monkeypatch.setattr(np, "savez_compressed", torn)
+    with pytest.raises(OSError, match="no space"):
+        ser.save_secret_key(path, other)
+    assert os.listdir(tmp_path) == ["secret.key"]
+    assert torch.equal(ser.load_secret_key(path, device="cpu").key.key, sk.key.key)

@@ -37,21 +37,26 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
-
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.realpath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+# run as a script, this file's directory stands first on sys.path, where
+# tools/profile.py would stand in for the standard library's profile module
+# (cProfile imports it, and torch._dynamo imports cProfile)
+sys.path[:] = [p for p in sys.path if os.path.realpath(p or os.curdir) != HERE]
 if not any(os.path.isdir(os.path.join(p, "torus_fhe_tpu_torch")) for p in sys.path if p):
     sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from torus_fhe_tpu_torch import bridge, mk  # noqa: E402
 from torus_fhe_tpu_torch.core import params as P  # noqa: E402
 from torus_fhe_tpu_torch.mk import ccs, gates3gen, keys3gen, kms  # noqa: E402
 from torus_fhe_tpu_torch.ops import cuda_rotate, fblock, poly  # noqa: E402
+from torus_fhe_tpu_torch.tools import smi_line, sync  # noqa: E402
 from torus_fhe_tpu_torch.tools.scheme_noise import (allowed_wrong, ccs_noise_std,  # noqa: E402
                                                     phase_error)
 from torus_fhe_tpu_torch.utils import serialize  # noqa: E402
@@ -255,7 +260,7 @@ def take_key(name: str, params, device, wait_s: float, forms=("fb",)):
                  **{f: load(f) for f in fields})
     sks = bridge.mk_secret_keys_from_numpy(params, load("lwe_keys"), load("rlwe_keys"),
                                            device=device)
-    _sync(device)
+    sync(device)
     t_card = time.perf_counter() - t
     shutil.rmtree(out_dir)
     return ck, sks, made, t_wait, t_card
@@ -267,19 +272,16 @@ def cache_path(scheme: str, parties: int, tag: str, no_fblock: bool) -> str:
 
 def save_cache(path: str, scheme: str, ck, sks) -> None:
     """The cloud key (utils/serialize's file of its scheme) and, beside it,
-    the parties' LWE and ring keys. Each is written under a ``.tmp`` name
-    and renamed into place, the cloud key last: a file at ``path`` is whole
+    the parties' LWE and ring keys. utils/serialize writes each file whole
+    or not at all, and the cloud key goes last: a file at ``path`` is whole
     and has its secrets beside it."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     save = {"3gen": serialize.save_mk_cloud_key, "ccs": serialize.save_ccs_cloud_key,
             "kms": serialize.save_kms_cloud_key}[scheme]
-    secrets = path[:-4] + "_secrets.npz"
-    save(path + ".tmp", ck)
-    serialize.save_named(secrets + ".tmp", "mk_secret_keys",
+    serialize.save_named(path[:-4] + "_secrets.npz", "mk_secret_keys",
                          {"lwe": torch.stack([sk.lwe.key for sk in sks]),
                           "rlwe": torch.stack([sk.rlwe.key for sk in sks])}, params=ck.params)
-    os.replace(secrets + ".tmp", secrets)
-    os.replace(path + ".tmp", path)
+    save(path, ck)
 
 
 def load_cache(path: str, scheme: str, forms: tuple, device):
@@ -366,11 +368,6 @@ def bound_3gen(ck, B: int) -> tuple:
     return cuda_rotate.bound_ms(2 * macs, cuda_rotate.INT8_OPS_PER_S, moved)
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
 def row(scheme: str, ck, sks, B: int, trials: int, seed: int, warmup: bool = True) -> dict:
     """One row: a NAND batch of B gates over all four input pairs on the key
     ``ck`` (secret keys ``sks``), from a CPU generator seeded with ``seed``;
@@ -396,14 +393,14 @@ def row(scheme: str, ck, sks, B: int, trials: int, seed: int, warmup: bool = Tru
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    _sync(device)
+    sync(device)
     cuda_rotate.blind_rotate_cuda.launches = cuda_rotate.blind_rotate_sel_cuda.launches = 0
     poly.int8_matmul.calls = 0
     calls, walls, out, same = 0, [], None, True
     for k in range(int(warmup) + max(trials, 1)):
         t = time.perf_counter()
         got = gate(ck, cx, cy)
-        _sync(device)
+        sync(device)
         wall = time.perf_counter() - t
         calls += 1
         if out is None:
@@ -460,14 +457,6 @@ def row(scheme: str, ck, sks, B: int, trials: int, seed: int, warmup: bool = Tru
                                         "kms": kms_bound}[scheme](ck, B)
     rec.update(correct=not fails, noise_ok=noise_ok, fails=fails)
     return rec
-
-
-def smi_line(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them; ``cpu`` on the CPU."""
-    if torch.device(device).type != "cuda":
-        return "cpu"
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def main(argv=None) -> int:
@@ -529,7 +518,7 @@ def main(argv=None) -> int:
                 if args.keygen_only:
                     save_cache(path, scheme, ck, sks)
                 made = {"keygen_s": time.perf_counter() - t}
-            _sync(device)
+            sync(device)
             made["key_s"] = time.perf_counter() - t
             if args.keygen_only:
                 print(f"# keygen-only: {name} cached at {path}", file=sys.stderr, flush=True)

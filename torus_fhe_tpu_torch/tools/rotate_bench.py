@@ -29,11 +29,16 @@ import os
 import subprocess
 import sys
 
-import torch
-
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.realpath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+# run as a script, this file's directory stands first on sys.path, where
+# tools/profile.py would stand in for the standard library's profile module
+# (cProfile imports it, and torch._dynamo imports cProfile)
+sys.path[:] = [p for p in sys.path if os.path.realpath(p or os.curdir) != HERE]
 if not any(os.path.isdir(os.path.join(p, "torus_fhe_tpu_torch")) for p in sys.path if p):
     sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
 
 from torus_fhe_tpu_torch.boot.bootstrap import bk_geometry  # noqa: E402
 from torus_fhe_tpu_torch.core import params as P  # noqa: E402

@@ -23,18 +23,24 @@ import math
 import os
 import sys
 
-import numpy as np
-import torch
-
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.realpath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+# run as a script, this file's directory stands first on sys.path, where
+# tools/profile.py would stand in for the standard library's profile module
+# (cProfile imports it, and torch._dynamo imports cProfile)
+sys.path[:] = [p for p in sys.path if os.path.realpath(p or os.curdir) != HERE]
 if not any(os.path.isdir(os.path.join(p, "torus_fhe_tpu_torch")) for p in sys.path if p):
     sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from torus_fhe_tpu_torch import mk  # noqa: E402
 from torus_fhe_tpu_torch.core import params as P  # noqa: E402
 from torus_fhe_tpu_torch.core.torus import noise_calc  # noqa: E402
 from torus_fhe_tpu_torch.mk import ccs, kms  # noqa: E402
 from torus_fhe_tpu_torch.ops import hostmath, poly  # noqa: E402
+from torus_fhe_tpu_torch.tools import smi_line  # noqa: E402
 
 
 def ccs_noise_std(params: P.SchemeParamsCCS, ck=None, sks=None) -> float:
@@ -182,7 +188,7 @@ def main() -> int:
     from torus_fhe_tpu_torch.tools import perf_comp  # the keygen workers
 
     device = torch.device("cuda")
-    print(perf_comp.smi_line(device), flush=True)
+    print(smi_line(device), flush=True)
 
     jobs = []
     for name in args.sets.split(","):

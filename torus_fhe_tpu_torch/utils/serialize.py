@@ -28,8 +28,10 @@ written without the zero columns this package pads them with
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
@@ -59,11 +61,21 @@ def _host(x) -> np.ndarray:
 
 
 def _write(path: str, meta: dict, payload: dict, params) -> None:
+    """Write the file whole or not at all: under ``path + ".tmp"``, renamed
+    into place once written, the ``.tmp`` removed if writing raises. A run
+    killed mid-write leaves no truncated file at ``path`` for a later load."""
     if params is not None:
         meta["params"] = _params_to_json(params)
     payload["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    with open(path, "wb") as f:
-        np.savez_compressed(f, **payload)
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez_compressed(f, **payload)
+        os.replace(tmp, path)
+    except BaseException:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(tmp)
+        raise
 
 
 def _read_meta(z) -> dict:
