@@ -23,7 +23,8 @@ as in the JAX package):
 32-bit torus, digits of at most a byte), "fblock" for another F-block key,
 and "scan" for a key that holds only the conv form. Every route gives the
 same words. This package's keygens build the F-block form unless ``forms``
-asks for ``conv``.
+asks for ``conv``. Each route's CMux chain runs inside an ``fhe.rotate`` span
+(utils/profiling.span).
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from ..ops.cuda_rotate import rotate, takes_kernel_route
 from ..ops.poly import mul_by_monomial
 from ..rlwe import RLweKey, RLweSample, rlwe_extract_sample, rlwe_noiseless_trivial
 from ..tgsw import PackedTGsw, TGswSample, pack_tgsw, tgsw_encrypt, tgsw_extern_mul
+from ..utils.profiling import span
 from .keyswitch import KeyswitchKey, keyswitch
 
 FORMS = ("conv", "fblock")
@@ -162,14 +164,18 @@ def blind_rotate(accum: RLweSample, bk: BootstrapKey, bara: torch.Tensor,
     if backend == "scan":
         if bk.kernels is None:
             raise ValueError("the scan backend needs the conv form of the bootstrapping key")
-        for i in range(bk.kernels.shape[0]):
-            accum = mux_rotate(accum, bk.kernels[i], bara[:, i], params)
+        with span("fhe.rotate"):
+            for i in range(bk.kernels.shape[0]):
+                accum = mux_rotate(accum, bk.kernels[i], bara[:, i], params)
         return accum
     if bk.fb is None:
         raise ValueError(f"the {backend} backend needs the fblock form of the bootstrapping key")
     tg = params.tgsw
     args = (accum.a, bk.fb, bara, bk_geometry(params), tg.decomp_length, tg.log2_base, tg.offset)
-    return RLweSample(rotate(*args) if backend == "pallas" else fblock.blind_rotate_fblock(*args))
+    if backend == "pallas":
+        return RLweSample(rotate(*args))
+    with span("fhe.rotate"):
+        return RLweSample(fblock.blind_rotate_fblock(*args))
 
 
 def blind_rotate_and_extract(v: torch.Tensor, bk: BootstrapKey, barb: torch.Tensor,

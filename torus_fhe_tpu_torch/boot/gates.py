@@ -2,7 +2,8 @@
 
 Port of torus_fhe_tpu/boot/gates.py: each two-input gate is one affine
 combination of the input batches plus one gate bootstrap; NOT is free; MUX
-costs two rotate-extracts and one keyswitch.
+costs two rotate-extracts and one keyswitch. Every bootstrapped gate runs
+inside an ``fhe.gate`` span (utils/profiling.span).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import torch
 
 from ..core.torus import encode_message
 from ..lwe import LweSample, lwe_noiseless_trivial
+from ..utils.profiling import spanned
 from .api import CloudKey
 from .bootstrap import bootstrap, bootstrap_wo_keyswitch
 from .keyswitch import keyswitch
@@ -19,6 +21,7 @@ from .keyswitch import keyswitch
 # +-1/8 and +-1/4 as Python ints: the bootstrap takes its test-vector mu static
 EIGHTH = {s: int(encode_message(s, 8)) for s in (-1, 1)}
 QUARTER = {s: int(encode_message(s, 4)) for s in (-1, 1)}
+gate_span = spanned("fhe.gate")  # also mk/gates3gen's
 
 
 def _trivial_like(ck: CloudKey, x: LweSample, mu: int) -> LweSample:
@@ -29,42 +32,52 @@ def _boot(ck: CloudKey, t: LweSample) -> LweSample:
     return bootstrap(ck.bootstrap_key, ck.keyswitch_key, EIGHTH[1], t, ck.params)
 
 
+@gate_span
 def gate_nand(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[1]) - x - y)
 
 
+@gate_span
 def gate_or(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[1]) + x + y)
 
 
+@gate_span
 def gate_and(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[-1]) + x + y)
 
 
+@gate_span
 def gate_xor(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, QUARTER[1]) + (x + y).scale(2))
 
 
+@gate_span
 def gate_xnor(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, QUARTER[-1]) - (x + y).scale(2))
 
 
+@gate_span
 def gate_nor(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[-1]) - x - y)
 
 
+@gate_span
 def gate_andny(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[-1]) - x + y)
 
 
+@gate_span
 def gate_andyn(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[-1]) + x - y)
 
 
+@gate_span
 def gate_orny(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[1]) - x + y)
 
 
+@gate_span
 def gate_oryn(ck: CloudKey, x: LweSample, y: LweSample) -> LweSample:
     return _boot(ck, _trivial_like(ck, x, EIGHTH[1]) + x - y)
 
@@ -83,6 +96,7 @@ def gate_constant(ck: CloudKey, values: torch.Tensor, device=None) -> LweSample:
     return lwe_noiseless_trivial(mu, ck.params.lwe, values.shape, device=values.device)
 
 
+@gate_span
 def gate_mux(ck: CloudKey, x: LweSample, y: LweSample, z: LweSample) -> LweSample:
     """MUX(x, y, z) = x ? y : z — two rotate-extracts and one keyswitch."""
     t1 = _trivial_like(ck, x, EIGHTH[-1]) + x + y

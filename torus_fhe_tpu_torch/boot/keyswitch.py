@@ -5,6 +5,8 @@ lookups into a table of LWE samples become one (B, K) @ (K, (n_out+1)*4) int8
 product of a {0,1} one-hot matrix with the byte-limb-split table, exact in
 int32 (torch._int_mm; the JAX package leaves this product to XLA, outside any
 Pallas kernel). h = 0 digits select no row, as the reference skips them.
+A keyswitch (this one, or mk/boot3gen's multikey one) runs inside an
+``fhe.keyswitch`` span (utils/profiling.span).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..core.params import KeyswitchParams
 from ..core.torus import double_to_torus
 from ..lwe import LweKey, LweSample
 from ..ops import poly
+from ..utils.profiling import spanned
 
 
 @dataclass
@@ -61,6 +64,7 @@ def keyswitch_keygen(generator: torch.Generator, alpha: float, params: Keyswitch
     return KeyswitchKey(pad_table(mat).to(device), n_in, n_out)
 
 
+@spanned("fhe.keyswitch")
 def keyswitch(ks: KeyswitchKey, params: KeyswitchParams, sample: LweSample) -> LweSample:
     """Batched keyswitch. sample.a: (..., n_in) over the extracted key."""
     l = params.decomp_length

@@ -20,7 +20,8 @@ exact lines runs and any other key refuses.
 
 The multikey keyswitch applies every party's table to the same extracted
 mask: one one-hot digit matrix against the party-concatenated tables, one
-int8 product, and the b parts summed over parties.
+int8 product, and the b parts summed over parties, inside an
+``fhe.keyswitch`` span. The rotate runs inside ``fhe.rotate`` (ops/cuda_rotate).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..lwe import LweSample
 from ..ops import poly
 from ..ops.cuda_rotate import rotate, rotate_streamed
 from ..rlwe import RLweSample, rlwe_extract_sample
+from ..utils.profiling import spanned
 from .keys3gen import MKCloudKey, mk_fb64_geometry, mk_fb_geometry, mk_fb_supported
 from .samples import MKLweSample
 
@@ -109,6 +111,7 @@ def ks_onehot(ck: MKCloudKey, a: torch.Tensor) -> torch.Tensor:
     return (digits[..., None] == h).to(torch.int8).reshape(-1, ck.ks_mat.shape[0])
 
 
+@spanned("fhe.keyswitch")
 def mk_keyswitch(ck: MKCloudKey, u: LweSample) -> MKLweSample:
     """Per-party keyswitch of the extracted sample u (a (..., N) over the
     summed extracted keys) with one shared one-hot int8 product."""

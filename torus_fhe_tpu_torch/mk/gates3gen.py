@@ -6,14 +6,15 @@ is two rotate-extracts and one keyswitch. The ``_wb`` variants are the affine
 parts alone, without the bootstrap. The integer circuits (ripple adders,
 comparators, shift-add multiplier, sort, conv2d) keep the bit-position loops
 sequential and batch everything else. A word is one MKLweSample whose
-LEADING axis is the bit position (width, ..., parties, n), LSB first.
+LEADING axis is the bit position (width, ..., parties, n), LSB first. Every
+bootstrapped gate runs inside an ``fhe.gate`` span (utils/profiling.span).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..boot.gates import EIGHTH, QUARTER
+from ..boot.gates import EIGHTH, QUARTER, gate_span
 from ..lwe import LweSample
 from .boot3gen import mk_bootstrap, mk_bootstrap_wo_keyswitch, mk_keyswitch
 from .keys3gen import MKCloudKey
@@ -43,22 +44,27 @@ def mk_gate_xor_wb(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSampl
     return _trivial_like(ck, x, QUARTER[1]) + (x + y).scale(2)
 
 
+@gate_span
 def mk_gate_nand(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     return mk_bootstrap(ck, MU, mk_gate_nand_wb(ck, x, y))
 
 
+@gate_span
 def mk_gate_or(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     return mk_bootstrap(ck, MU, mk_gate_or_wb(ck, x, y))
 
 
+@gate_span
 def mk_gate_and(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     return mk_bootstrap(ck, MU, mk_gate_and_wb(ck, x, y))
 
 
+@gate_span
 def mk_gate_xor(ck: MKCloudKey, x: MKLweSample, y: MKLweSample) -> MKLweSample:
     return mk_bootstrap(ck, MU, mk_gate_xor_wb(ck, x, y))
 
 
+@gate_span
 def mk_gate_3and(ck: MKCloudKey, x: MKLweSample, y: MKLweSample,
                  z: MKLweSample) -> MKLweSample:
     """3-input AND in one bootstrap."""
@@ -69,6 +75,7 @@ def mk_gate_not(ck: MKCloudKey, x: MKLweSample) -> MKLweSample:
     return -x
 
 
+@gate_span
 def mk_gate_mux(ck: MKCloudKey, x: MKLweSample, y: MKLweSample,
                 z: MKLweSample) -> MKLweSample:
     """MUX(x, y, z) = x ? y : z: two rotate-extracts, one keyswitch."""

@@ -26,7 +26,8 @@ sends CUDA tensors to the kernel and CPU tensors to the plain version
 geometry or wider digits (tfhe_80, the 3gen sets from 16 parties up) take the
 torch-op scan of ops/fblock on either device, as the JAX package runs them as
 an XLA scan outside Pallas. There is no fallback: on the kernel route a CUDA
-tensor launches the kernel or raises, and a failed build raises.
+tensor launches the kernel or raises, and a failed build raises. Both run
+inside an ``fhe.rotate`` span (utils/profiling.span).
 
 Each kernel source is compiled with nvcc at first use into ``_build/`` next to
 this package (a shared library with a plain C interface, loaded with ctypes),
@@ -46,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import spanned
 from . import fblock
 from .fblock import FBlockGeometry
 
@@ -574,6 +576,7 @@ def check_wide_args(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
     _check_tensors(acc_a, key, bara, geom, stepvec, key_shapes, "the key", dtype)
 
 
+@spanned("fhe.rotate")
 def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
            decomp_length: int, log2_base: int, offset: int,
            stepvec=None) -> torch.Tensor:
@@ -600,6 +603,7 @@ def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
     raise ValueError(f"no blind rotate for device {fb.device}")
 
 
+@spanned("fhe.rotate")
 def rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
                     decomp_length: int, log2_base: int, offset: int,
                     stepvec=None) -> torch.Tensor:

@@ -7,6 +7,13 @@ op and by category: the two blind-rotate kernels, the int8 GEMMs of
 ``torch._int_mm``, FFT, copies, elementwise and reduction kernels, the
 collectives, and the rest.
 
+The program's layers open spans (``span``, ``spanned``) that a session
+records on the calling thread's host lane, beside the launch calls and the
+card's records, so device time, idle time and synchronises can be put down
+to the layer whose host code was running: ``fhe.gate`` (a bootstrapped gate call),
+``fhe.rotate`` (a blind rotate), ``fhe.keyswitch`` (a keyswitch). With no
+session on, a span is a shared no-op.
+
 Usage:
     with device_trace("/tmp/trace"):
         out = gates.gate_and(ck, cx, cy)
@@ -17,6 +24,7 @@ Usage:
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import gzip
 import json
@@ -34,6 +42,27 @@ HOST_CAT = "cpu_op"  # the host op lanes, counted when the trace has no device l
 WARMUP_KERNELS = 64  # the guard launches on each side of a traced body on the card, at least
 GUARDS = ("device_trace.guard_before", "device_trace.guard_after")  # their host spans
 _guard = dict.fromkeys(GUARDS, 0)  # the guard launches the losses seen so far ask for
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler session
+    is on, else the shared no-op context: on an x86 host a range costs
+    ~9-12 us to enter and leave even with no session, the check ~0.2 us."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: the function's calls run inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 @contextlib.contextmanager
