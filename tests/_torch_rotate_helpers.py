@@ -8,7 +8,11 @@ pytest does not collect this module.
 with the kernel's byte offsets into the flat key and digit buffers, its tile
 decomposition (``cuda_rotate.rotate_plan``), its reduction order (BK-byte
 chunks, block m = (i - j) mod D) and its epilogue (limbs combined per
-coefficient, added into the accumulator in place). ``emulate_sel_kernel``
+coefficient, added into the accumulator in place); for the wgmma tile of
+csrc/rotate_wgmma.cuh also its cluster pairs (gate tiles 2p, 2p + 1 of one
+key box, dealt to the clusters round-robin; a pair past the last gate tile
+reads zero rows and stores nothing), its TMA boxes (a 2-D view of the key as
+rows of R*bs bytes) and its limb-major key operand. ``emulate_sel_kernel``
 does the same for csrc/blind_rotate_sel.cu, whose key operand is made on the
 SM: the window of 16-byte chunks of a reversed line (wrapped mod 2N), its
 three byte-shifted copies (a funnel shift a word, ``window_stride`` words
@@ -74,12 +78,37 @@ def world(name, B, seed):
 SEL_GEOMETRIES = {**GEOMETRIES, "k2_rounded_N256": lambda: single(twin(256))}
 
 
+def tile_order(plan, nb, C, QT):
+    """(mt, j, poly, qt) of a step's tiles in the order the grid deals them:
+    round-robin over blocks, gate tiles of one key box side by side; for the
+    wgmma tile, pair tiles round-robin over the clusters of the plan's grid,
+    each pair the gate tiles 2p and 2p + 1 (by cluster rank) of one key box."""
+    MT = plan.m_tiles
+    if not plan.tile.wgmma:
+        for tile in range(plan.tiles):
+            mt, nt = tile % MT, tile // MT
+            qt, nt = nt % QT, nt // QT
+            yield mt, nt // C, nt % C, qt
+        return
+    cluster = cuda_rotate.WGMMA_CLUSTER
+    MP, clusters = -(-MT // cluster), plan.blocks // cluster
+    pairs = MP * nb * C * QT
+    assert plan.blocks % cluster == 0 and 1 <= clusters <= pairs
+    for cid in range(clusters):
+        for pt in range(cid, pairs, clusters):
+            nt = pt // MP
+            qt, nt = nt % QT, nt // QT
+            for rank in range(cluster):
+                yield cluster * (pt % MP) + rank, nt // C, nt % C, qt
+
+
 def emulate_frame(acc0, bara, geom, l, lb, offset, plan, key_rows):
     """The frame both kernels share (csrc/rotate_gemm.cuh), step by step in
     numpy: uint32 accumulator words, int8 digit rows of padded_m x K, the
-    plan's tiles in the kernel's order. ``key_rows(s, j, col, q0)`` is the
-    (wq, K) key operand of limb column ``col`` for output coefficients
-    j*bs + q0 .. + wq, in the kernel's reduction order."""
+    plan's tiles in the kernel's order (``tile_order``). ``key_rows(s, j,
+    col, q0)`` is the (wq, K) key operand of limb column ``col`` for output
+    coefficients j*bs + q0 .. + wq, in the kernel's reduction order; the
+    wgmma tile stacks the limbs' operands (limb-major rows) into one."""
     B, n = bara.shape
     N, C, bs, nb, R = geom.N, geom.C, geom.bs, geom.nb, geom.R
     rbs, K = R * bs, nb * R * bs
@@ -110,32 +139,55 @@ def emulate_frame(acc0, bara, geom, l, lb, offset, plan, key_rows):
                     k0 = i * rbs + (lev * C + c) * bs
                     dig[:B, k0:k0 + bs] = d[:, c, i * bs:(i + 1) * bs]
         # phase 2: one GEMM tile after the other, in the kernel's tile order
-        for tile in range(plan.tiles):
-            mt, nt = tile % MT, tile // MT
-            qt, nt = nt % QT, nt // QT
-            poly, j = nt % C, nt // C
+        seen = set()
+        for mt, j, poly, qt in tile_order(plan, nb, C, QT):
             m0, q0 = mt * bm, qt * wq
+            if m0 >= B:  # the second tile of a pair past the last: zero rows, no store
+                assert plan.tile.wgmma and mt == MT
+                continue
+            seen.add((mt, j, poly, qt))
             col0, nl = groups[poly]
             A = dig[m0:m0 + bm].astype(np.int64)
             v = np.zeros((bm, wq), np.uint32)
+            if plan.tile.wgmma:  # one B operand, the limbs' 64-row boxes one after the other
+                op = np.concatenate([key_rows(s, j, col0 + limb, q0) for limb in range(nl)])
+                sums = np.split(A @ op.astype(np.int64).T, nl, axis=1)
+            else:
+                sums = [A @ key_rows(s, j, col0 + limb, q0).astype(np.int64).T
+                        for limb in range(nl)]
             for limb in range(nl):
-                sums = A @ key_rows(s, j, col0 + limb, q0).astype(np.int64).T
-                assert np.abs(sums).max() < 2**31
-                v += sums.astype(np.int32).view(np.uint32) << np.uint32(geom.cols[col0 + limb][1])
+                assert np.abs(sums[limb]).max() < 2**31
+                v += (sums[limb].astype(np.int32).view(np.uint32)
+                      << np.uint32(geom.cols[col0 + limb][1]))
             rows_in = min(bm, B - m0)  # rows past B are never stored
             acc[m0:m0 + rows_in, poly, j * bs + q0:j * bs + q0 + wq] += v[:rows_in]
+        assert len(seen) == plan.tiles  # every tile once
     return torch.from_numpy(acc.view(np.int32))
 
 
 def emulate_kernel(acc0, key, bara, geom, l, lb, offset, plan):
     """blind_rotate.cu: the key as flat bytes of the kernel layout, a stage
-    being BK bytes of block m = (i - j) mod D of every row."""
+    being BK bytes of block m = (i - j) mod D of every row; the wgmma tile's
+    stages are TMA boxes of 64 rows x BK bytes of the key seen as rows of
+    R*bs bytes, the box of limb column col at row ((s*D + m)*ncols + col)*bs
+    + q0."""
     BK = plan.tile.bk
     bs, nb, D = geom.bs, geom.nb, geom.D
     ncols, rbs = len(geom.cols), geom.R * geom.bs
     nk_i = rbs // BK
     flat = key.numpy().reshape(-1)
     step_bytes, mblock = D * ncols * bs * rbs, ncols * bs * rbs
+    rows2d = flat.reshape(-1, rbs)  # the tensor map's view
+    assert rows2d.shape[0] == geom.n * D * ncols * bs
+
+    def box_rows(s, j, col, q0):
+        boxes = []
+        for kc in range(nb * nk_i):
+            i, kk = kc // nk_i, (kc % nk_i) * BK
+            m = i - j if i >= j else i - j + D
+            row = ((s * D + m) * ncols + col) * bs + q0
+            boxes.append(rows2d[row:row + plan.tile.wq, kk:kk + BK])
+        return np.concatenate(boxes, axis=1)  # (wq, K)
 
     def key_rows(s, j, col, q0):
         rows = (col * bs + q0 + np.arange(plan.tile.wq)) * rbs
@@ -147,7 +199,8 @@ def emulate_kernel(acc0, key, bara, geom, l, lb, offset, plan):
             chunks.append(flat[off + rows[:, None] + np.arange(BK)[None, :]])
         return np.concatenate(chunks, axis=1)  # (wq, K)
 
-    return emulate_frame(acc0, bara, geom, l, lb, offset, plan, key_rows)
+    return emulate_frame(acc0, bara, geom, l, lb, offset, plan,
+                         box_rows if plan.tile.wgmma else key_rows)
 
 
 SEL_WNQ = 2  # coefficient groups of eight a warp holds, in every compact tile

@@ -112,35 +112,44 @@ def _full_size(name):
     return bk_geometry(p), p.bs_decomp_length
 
 
-# per set: GEMM tiles per step at the 128 x 32 tile (nb * C * bs/32), digit bytes
-# per gate (R * N), and the tile of B=1024 on 132 SMs
-FULL_SIZE = {"tfhe_128_tpu_fast": (48, 3072, 128), "tfhe_128_tpu": (64, 6144, 256),
-             "mk_2party_3gen": (64, 4096, 256)}
+# per set: GEMM tiles per step at the 128 x 32 tile (nb * C * bs/32) and
+# digit bytes per gate (R * N)
+FULL_SIZE = {"tfhe_128_tpu_fast": (48, 3072), "tfhe_128_tpu": (64, 6144),
+             "mk_2party_3gen": (64, 4096), "tfhe_128": (64, 6144)}
 
 
 @pytest.mark.parametrize("name", list(FULL_SIZE))
 def test_launch_plan(name):
-    """The launch plan of blind_rotate.cu on a 132-SM card. B=1024: one block
-    per SM (its registers allow no more); the 128 x 32 tile at
-    tfhe_128_tpu_fast (2.91 rounds of the card per step, 97% busy; the 256 x
-    32 tile would leave 1.45 rounds, 73% busy), the 256 x 32 tile at the two
-    N=1024 sets (1.94 rounds, as busy as 3.88 of the smaller tile). B=1: the
-    16 x 8 tile, every tile a block of four warps that split its reduction,
-    more blocks than SMs so that one gate's key stream comes through all of
-    them. Ragged batches pad M up to the
-    tile; scratch is the digit rows alone (the output is the accumulator)."""
+    """The launch plan of blind_rotate.cu on a 132-SM card. B=1024 and 4096:
+    the wgmma tile (128 gates x 64 coefficients, 4 stages of 128 reduction
+    bytes, two consumer warpgroups and a producer warp), one block an SM in
+    66 clusters of two; its 128-gate tiles fill every SM (1.45 rounds of the
+    card a step at tfhe_128_tpu_fast, 1.94 at the N=1024 sets). Below, the
+    mma.sync tiles stay: B=1 the 16 x 8 tile, every tile a block of four
+    warps that split its reduction, more blocks than SMs so that one gate's
+    key stream comes through all of them; B=16 the same, B=64 the 64 x 16
+    tile, B=200 that or 128 x 32. Ragged batches pad M up to the tile;
+    scratch is the digit rows alone (the output is the accumulator)."""
     geom, l = _full_size(name)
-    n_big, digit_bytes, bm = FULL_SIZE[name]
-    plan = cuda_rotate.rotate_plan(1024, geom, l, 132)
-    stages = {128: 4, 256: 3}[bm]
-    assert plan.tile == cuda_rotate.TileConfig(bm, 32, stages, 256, 1, 128)
-    assert plan.tile is cuda_rotate.ROTATE_CONFIGS[plan.config]
-    assert (plan.m_tiles, plan.padded_m, plan.n_tiles) == (1024 // bm, 1024, n_big)
-    assert plan.tiles == plan.m_tiles * n_big and plan.blocks == 132
-    assert plan.waves == plan.tiles / 132
-    assert plan.fill == plan.tiles / (-(-plan.tiles // 132) * 132) > 0.96
-    assert plan.smem_bytes == stages * (bm + 4 * 32) * 128 <= 227 * 1024
-    assert plan.scratch_bytes == 1024 * digit_bytes
+    n_big, digit_bytes = FULL_SIZE[name]
+    wide = cuda_rotate.ROTATE_CONFIGS[cuda_rotate.WGMMA_CONFIG]
+    assert wide == cuda_rotate.TileConfig(128, 64, 4, 288, 1, 128, wgmma=True)
+    for B in (1024, 4096):
+        plan = cuda_rotate.rotate_plan(B, geom, l, 132)
+        assert plan.config == cuda_rotate.WGMMA_CONFIG and plan.tile is wide
+        assert (plan.m_tiles, plan.padded_m, plan.n_tiles) == (B // 128, B, n_big // 2)
+        assert plan.tiles == plan.m_tiles * plan.n_tiles >= 132 and plan.blocks == 132
+        assert plan.waves == plan.tiles / 132
+        # the ring, 1 KiB to align it, a full and an empty mbarrier a stage:
+        # within the 227 KB a block may take, and one block an SM
+        assert plan.smem_bytes == 4 * (128 + 4 * 64) * 128 + 1024 + 4 * 16 <= 227 * 1024
+        assert 2 * (plan.smem_bytes + 1024) > 228 * 1024
+        assert plan.scratch_bytes == B * digit_bytes
+    for B in (1, 16, 64, 200):
+        plan = cuda_rotate.rotate_plan(B, geom, l, 132)
+        assert plan.config in (0, 1, 2) and not plan.tile.wgmma
+        assert (plan.tile.bm, plan.tile.wq) == {1: (16, 8), 16: (16, 8), 64: (64, 16)}.get(
+            B, (128, 32) if n_big == 64 else (64, 16))
     one = cuda_rotate.rotate_plan(1, geom, l, 132)
     assert one.tile == cuda_rotate.TileConfig(16, 8, 3, 128, 3, 128, ksplit=4)
     assert (one.m_tiles, one.padded_m, one.n_tiles) == (1, 16, 4 * n_big)
@@ -153,9 +162,11 @@ def test_launch_plan(name):
         assert plan.tiles == plan.m_tiles * plan.n_tiles
         assert plan.blocks == min(plan.tiles, 132 * plan.tile.resident) and plan.fill <= 1.0
         assert plan.smem_bytes <= 227 * 1024 and plan.scratch_bytes == B * digit_bytes
-    # 1100 gates: the 256-gate tile would pad to 1280 where the 128-gate one pads to 1152
-    assert cuda_rotate.rotate_plan(1100, geom, l, 132).tile.bm == 128
-    assert cuda_rotate.rotate_plan(4096, geom, l, 132).tile.bm == 256
+    # 1100 gates: 9 gate tiles, the last a pair of its own with one past it
+    assert cuda_rotate.rotate_plan(1100, geom, l, 132).tile is wide
+    # one SM: the 128-gate tiles of 130 gates fill it, one cluster of two
+    plan = cuda_rotate.rotate_plan(130, geom, l, 1)
+    assert plan.tile is wide and plan.blocks == 2 and plan.m_tiles == 2
 
 
 def test_plan_takes_short_stages_where_the_long_do_not_divide():
@@ -173,7 +184,7 @@ def test_plan_takes_short_stages_where_the_long_do_not_divide():
     assert plans[0].tile == cuda_rotate.TileConfig(64, 16, 4, 128, 3, 64)
     assert [pl.padded_m for pl in plans] == [64, 64, 256]
     # the narrow tile is the only one with short stages
-    assert [c.bk for c in cuda_rotate.ROTATE_CONFIGS] == [128] * 4 + [64]
+    assert [c.bk for c in cuda_rotate.ROTATE_CONFIGS] == [128, 128, 128, 64, 128]
 
 
 def test_plan_rejects_what_the_tiles_do_not_take():
@@ -215,11 +226,17 @@ def test_kernel_equals_plain_version(cuda_device, name, B):
 
 
 @pytest.mark.cuda
-def test_two_streams_at_once(cuda_device):
+@pytest.mark.parametrize("wide", [False, True])
+def test_two_streams_at_once(cuda_device, wide):
     """Two rotates queued on two streams of one card (as
     parallel/mesh.run_batch_sharded does) finish and give the one-stream
-    words: the grid barrier of one launch cannot wait on the other's."""
-    key, acc, bara, barb, args = _setup(PARAMS["k1_N256"](), 40, 3, device=cuda_device)
+    words: the grid barrier of one launch cannot wait on the other's, for
+    the mma.sync tiles and for the wgmma tile's clusters (1,024 gates of
+    tfhe_128, 16 steps)."""
+    if wide:
+        key, acc, bara, barb, args = _wide_world("tfhe_128", 1024, cuda_device)
+    else:
+        key, acc, bara, barb, args = _setup(PARAMS["k1_N256"](), 40, 3, device=cuda_device)
     want = cuda_rotate.blind_rotate_cuda(acc, key, bara, *args)
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
@@ -230,3 +247,74 @@ def test_two_streams_at_once(cuda_device):
                 outs.append(cuda_rotate.blind_rotate_cuda(acc, key, bara, *args))
     torch.cuda.synchronize()
     assert all(torch.equal(out, want) for out in outs)
+
+
+def _wide_world(name, B, device, steps=16):
+    """The real geometry of ``name`` over its first ``steps`` steps, a random
+    key in the kernel layout (the rotate's arithmetic does not depend on the
+    key being an encryption) and random inputs, on ``device``."""
+    geom, l = _full_size(name)
+    if name == "mk_2party_3gen":
+        tg = P.TGswParams(l, P.mktfhe_parameters_2party_3gen().gsw_log2_base, 32)
+    else:
+        tg = P.PARAMETER_REGISTRY[name]().tgsw
+    geom = geom._replace(n=steps)
+    g = torch.Generator(device=device).manual_seed(B)
+    key = torch.randint(-128, 128, (steps,) + fblock.kernel_layout_shape(geom), generator=g,
+                        dtype=torch.int8, device=device)
+    acc = torch.randint(-2**31, 2**31 - 1, (B, geom.C, geom.N), generator=g, dtype=torch.int32,
+                        device=device)
+    bara = torch.randint(0, 2 * geom.N, (B, steps), generator=g, dtype=torch.int32, device=device)
+    barb = torch.randint(-geom.N, geom.N, (B,), generator=g, dtype=torch.int32, device=device)
+    return key, acc, bara, barb, (geom, l, tg.log2_base, tg.offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tfhe_128", "mk_2party_3gen"])
+@pytest.mark.parametrize("B, sms", [(130, 1), (1000, None), (1024, None), (1030, None),
+                                    (2048, None)])
+def test_wgmma_tile_equals_plain_version(cuda_device, monkeypatch, name, B, sms):
+    """The wgmma tile (csrc/rotate_wgmma.cuh) word for word against the plain
+    version on the real geometries' first 16 steps, in both init modes:
+    ragged last gate tiles (1000; 1030, an odd count of them, so the last
+    cluster pair has a tile past the batch), a plan for a card of one SM (130
+    gates: one cluster of two, the second tile ragged), and
+    ``blind_rotate_cuda.by_config`` counting the launches."""
+    if sms:
+        monkeypatch.setattr(cuda_rotate, "_sm_count", lambda device: sms)
+    key, acc, bara, barb, args = _wide_world(name, B, cuda_device)
+    plan = cuda_rotate.rotate_plan(B, args[0], args[1], cuda_rotate._sm_count(cuda_device))
+    assert plan.config == cuda_rotate.WGMMA_CONFIG
+    before = cuda_rotate.blind_rotate_cuda.by_config.get(plan.config, 0)
+    for acc_a, stepvec in ((acc, None), (None, (-(1 << 29), barb))):
+        got = cuda_rotate.blind_rotate_cuda(acc_a, key, bara, *args, stepvec=stepvec)
+        want = fblock.blind_rotate_fblock(acc_a, key, bara, *args, stepvec=stepvec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        grid = cuda_rotate.blind_rotate_cuda.grid
+        assert grid % 2 == 0 and 2 <= grid <= plan.blocks  # whole clusters, all resident
+    assert cuda_rotate.blind_rotate_cuda.by_config[plan.config] == before + 2
+
+
+@pytest.mark.cuda
+def test_wide_rotate_leaves_one_rotate_record(cuda_device, tmp_path):
+    """One wide launch (the wgmma tile) under torch.profiler leaves exactly
+    one kernel record, which the benchmark's trace files as the expanded-key
+    rotate: ``rotate_roofline.wide`` divides a whole rotate's bound by the
+    mean time of such records."""
+    from perfbench import tracing
+    from torus_fhe_tpu_torch.utils import profiling
+
+    key, acc, bara, barb, args = _wide_world("tfhe_128", 1024, cuda_device)
+    assert cuda_rotate.rotate_plan(1024, args[0], args[1],
+                                   cuda_rotate._sm_count(cuda_device)).tile.wgmma
+    torch.cuda.synchronize()
+    with profiling.device_trace(str(tmp_path), cuda_device):
+        cuda_rotate.blind_rotate_cuda(None, key, bara, *args, stepvec=(1 << 29, barb))
+    events = [ev for path in profiling._trace_files(str(tmp_path))
+              for ev in profiling._load(path) if ev.get("ph") == "X"]
+    guards = set().union(*profiling._guard_correlations(events).values())
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"
+               and ev.get("args", {}).get("correlation") not in guards]
+    assert len(kernels) == 1, [ev.get("name") for ev in kernels]
+    assert tracing.category(kernels[0]["name"], kernels[0]["cat"]) == tracing.ROTATE

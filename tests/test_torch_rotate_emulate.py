@@ -23,21 +23,31 @@ def _one_torch_thread():
 
 
 # (B, SM count): 3 gates take the 16 x 8 tile, 20 gates the 64 x 16 one on a
-# large card and the 128 x 32 one on a card of one SM, where 200 gates take
-# the 256 x 32 one; 70 gates are ragged against 64. R*bs = 192 (k2_l1_N64)
-# takes the 64 x 16 tile with 64-byte stages at every batch
+# large card; 70 gates are ragged against 64. On a card of one SM the
+# 128-gate tiles of 64 coefficients fill every SM, so the wgmma tile runs 20
+# gates (one gate tile and the pair's second past the last) and 200 (a pair,
+# one cluster); on four SMs 150 gates (pairs dealt to two clusters); on a
+# card of one SM more than those tiles ("over") 20 gates take the 128 x 32
+# tile. R*bs = 192 (k2_l1_N64) takes the 64 x 16 tile with 64-byte stages at
+# every batch
 @pytest.mark.parametrize("B, sms, tile", [(3, 132, (16, 8)), (20, 132, (64, 16)),
-                                          (70, 132, (64, 16)), (20, 1, (128, 32)),
-                                          (200, 1, (256, 32))])
+                                          (70, 132, (64, 16)), (20, 1, (128, 64)),
+                                          (200, 1, (128, 64)), (150, 4, (128, 64)),
+                                          (20, "over", (128, 32))])
 @pytest.mark.parametrize("name", ["k1_N256", "k2_rounded_N64", "k2_l1_N64", "multikey_N512"])
 def test_kernel_emulation_equals_plain_version(name, B, sms, tile):
     _, fb, acc, bara, barb, args = world(name, B, 2)
     geom, l, lb, offset = args
     key = fblock.to_kernel_layout(fb, geom)
+    if sms == "over":
+        wide = cuda_rotate.ROTATE_CONFIGS[cuda_rotate.WGMMA_CONFIG]
+        sms = -(-B // wide.bm) * geom.nb * geom.C * (geom.bs // wide.wq) + 1
     plan = cuda_rotate.rotate_plan(B, geom, l, sms)
     narrow = name == "k2_l1_N64"
     assert (plan.tile.bm, plan.tile.wq) == ((64, 16) if narrow else tile)
     assert plan.tile.bk == (64 if narrow else 128)
+    assert plan.tile.wgmma == (plan.config == cuda_rotate.WGMMA_CONFIG) == (tile == (128, 64)
+                                                                           and not narrow)
     got = emulate_kernel(acc, key, bara, geom, l, lb, offset, plan)
     assert torch.equal(got, fblock.blind_rotate_fblock(acc, fb, bara, *args))
     mu = -(1 << 29)

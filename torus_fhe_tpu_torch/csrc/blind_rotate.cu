@@ -40,15 +40,19 @@
 //     bytes of the reduction per stage, chunk c + STAGES - 1 in flight while
 //     chunk c multiplies; shared-memory rows are XOR-swizzled so that the
 //     eight rows of an ldmatrix phase meet no bank conflict.
-//   * Four tile shapes (the wrapper's launch plan picks by B and the SM
-//     count): 256 gates x 32 coefficients, 128 x 32, 64 x 16, and 16 x 8 for
+//   * Three mma.sync tile shapes (the wrapper's launch plan picks by B and
+//     the SM count): 128 gates x 32 coefficients, 64 x 16, and 16 x 8 for
 //     B <= 16, with stages of 128 reduction bytes; a geometry whose R*bs is
 //     no multiple of 128 takes one 64 x 16 tile with 64-byte stages.
+//   * At wide batches (128-gate tiles of 64 coefficients that fill every SM)
+//     the GEMM phase is the tile of rotate_wgmma.cuh instead: warpgroup MMAs
+//     from a TMA ring, the key box multicast to a 2-block cluster.
 // The grid never exceeds what is co-resident (occupancy query), so the
 // barrier cannot deadlock, and two launches from two streams serialise.
-// Measured on an H100 (700 W): at B = 1024 the tiles' traffic from L2 into the
-// SMs (~3.5 TB/s) sets the pace, at a fifth of the tensor-core bound; a grid
-// barrier costs 1.2 us.
+// Measured on an H100 (700 W): the mma.sync tiles at B = 1024 drew ~3.0 TB/s
+// from L2 into the SMs at a quarter of the tensor-core bound (127 ms a rotate
+// at tfhe_128); the wgmma tile takes 75 ms, its TMA loads alone 64 ms of it.
+// A grid barrier costs 1.2 us.
 //
 // The sums are exact: each output sums K = R*N products of |digit| <= 2^(lb-1)
 // and |limb| <= 128, so R*N*2^(lb-1)*128 < 2^31 bounds it (the wrapper checks
@@ -56,15 +60,16 @@
 // The kernel's body is rotate_gemm.cuh, shared with blind_rotate_sel.cu, which
 // differs in where a tile's key operand comes from; the tiles are named here.
 
-#include "rotate_gemm.cuh"
+#include "rotate_wgmma.cuh"  // and rotate_gemm.cuh
 
 // One blind rotate of B gates: out (B, C, N) int32 is the accumulator in
 // place. acc_in == NULL selects the stepvec mode (barb and mu); otherwise barb
 // is unused. key is the kernel layout (n, D, ncols*bs, R*bs) int8; dig is
 // B*R*N bytes of scratch. config picks the tile (0: 16 gates x 8
-// coefficients; 1: 64 x 16; 2: 128 x 32; 3: 256 x 32, all with 128-byte
-// pipeline stages, which R*bs must be a multiple of; 4: 64 x 16 with 64-byte
-// stages, which take every geometry), blocks the grid asked for, which is cut
+// coefficients; 1: 64 x 16; 2: 128 x 32, all with 128-byte pipeline stages,
+// which R*bs must be a multiple of; 3: 64 x 16 with 64-byte stages, which
+// take every geometry; 4: the wgmma tile, 128 x 64 in clusters of two,
+// 128-byte stages, bs a multiple of 64), blocks the grid asked for, which is cut
 // to what is co-resident (at most the tile's RESIDENT blocks per SM) and
 // reported in *grid_used. The limb columns of one polynomial must
 // be consecutive, at most four. Returns the CUDA error of the launch (0 on
@@ -76,7 +81,7 @@ extern "C" int blind_rotate_launch(void* out, const void* acc_in, const void* ba
                                    const int* col_poly, const int* col_shift, void* stream,
                                    int* grid_used) {
   if (blocks < 1 || bs % 32 || (l * C * bs) % 64) return (int)cudaErrorInvalidValue;
-  if (config < 0 || config > 4 || (config < 4 && (l * C * bs) % 128))
+  if (config < 0 || config > 4 || (config != 3 && (l * C * bs) % 128))
     return (int)cudaErrorInvalidValue;
   Geom g;
   if (!fill_geom(g, B, n, N, bs, C, l, lb, offset, mu, ncols, col_poly, col_shift))
@@ -92,14 +97,13 @@ extern "C" int blind_rotate_launch(void* out, const void* acc_in, const void* ba
   using T0 = Tile<false, 1, 1, 1, 1, 3, 3, 128, 4>;
   using T1 = Tile<false, 4, 1, 1, 2, 3, 3, 128>;
   using T2 = Tile<false, 4, 2, 2, 2, 4, 1, 128>;
-  using T3 = Tile<false, 4, 2, 4, 2, 3, 1, 128>;
-  using T4 = Tile<false, 4, 1, 1, 2, 4, 3, 64>;
+  using T3 = Tile<false, 4, 1, 1, 2, 4, 3, 64>;
   switch (config) {
     case 0: return (int)launch<T0>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     case 1: return (int)launch<T1>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     case 2: return (int)launch<T2>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     case 3: return (int)launch<T3>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
-    case 4: return (int)launch<T4>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 4: return (int)wg::launch(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

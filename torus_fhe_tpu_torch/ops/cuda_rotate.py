@@ -55,7 +55,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"blind_rotate": os.path.join(CSRC, "blind_rotate.cu"),
            "blind_rotate_sel": os.path.join(CSRC, "blind_rotate_sel.cu")}
-HEADERS = [os.path.join(CSRC, "rotate_gemm.cuh")]
+HEADERS = [os.path.join(CSRC, "rotate_gemm.cuh"), os.path.join(CSRC, "rotate_wgmma.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -86,7 +86,9 @@ class TileConfig(NamedTuple):
     that many). With ``ksplit`` > 1 the block's warps split the tile's
     reduction, each through a ring of its own. ``compact``: the key side of
     a stage is a window of the compact lines (blind_rotate_sel.cu), not rows
-    of the expanded key (blind_rotate.cu)."""
+    of the expanded key (blind_rotate.cu). ``wgmma``: the tile of
+    csrc/rotate_wgmma.cuh, warpgroup MMAs fed by a TMA ring, two blocks of a
+    cluster sharing each key box (WGMMA_CLUSTER)."""
 
     bm: int
     wq: int
@@ -96,24 +98,31 @@ class TileConfig(NamedTuple):
     bk: int
     ksplit: int = 1
     compact: bool = False
+    wgmma: bool = False
 
     @property
     def smem_bytes(self) -> int:
         """The rings: per stage ``bk`` bytes of ``bm`` digit rows and, of the
         key, MAX_LIMBS * ``wq`` rows of ``bk`` bytes, or (compact) per limb
-        four shifted copies of the ``bk + wq``-byte window."""
+        four shifted copies of the ``bk + wq``-byte window; the wgmma tile's
+        ring also takes 1,024 bytes to align it and a full and an empty
+        mbarrier a stage."""
         key = (MAX_LIMBS * 4 * window_stride(self.bk + self.wq) * 4 if self.compact
                else MAX_LIMBS * self.wq * self.bk)
-        return self.ksplit * self.stages * (self.bm * self.bk + key)
+        ring = self.ksplit * self.stages * (self.bm * self.bk + key)
+        return ring + 1024 + 16 * self.stages if self.wgmma else ring
 
 
-# indexed by the ``config`` argument of blind_rotate_launch: four tile shapes
-# with 128-byte pipeline stages, and the one that takes a geometry whose R*bs
-# is no multiple of 128 (an odd R at bs = 64), with 64-byte stages
+# indexed by the ``config`` argument of blind_rotate_launch: three mma.sync
+# tile shapes with 128-byte pipeline stages, the one that takes a geometry
+# whose R*bs is no multiple of 128 (an odd R at bs = 64), with 64-byte
+# stages, and the wgmma tile of wide batches (two consumer warpgroups and a
+# producer warp)
 ROTATE_CONFIGS = (TileConfig(16, 8, 3, 128, 3, 128, 4), TileConfig(64, 16, 3, 128, 3, 128),
-                  TileConfig(128, 32, 4, 256, 1, 128), TileConfig(256, 32, 3, 256, 1, 128),
-                  TileConfig(64, 16, 4, 128, 3, 64))
-NARROW_CONFIG = 4
+                  TileConfig(128, 32, 4, 256, 1, 128), TileConfig(64, 16, 4, 128, 3, 64),
+                  TileConfig(128, 64, 4, 288, 1, 128, wgmma=True))
+NARROW_CONFIG, WGMMA_CONFIG = 3, 4
+WGMMA_CLUSTER = 2  # blocks of a cluster: gate tiles that share a key box
 # indexed by the ``config`` argument of blind_rotate_sel_launch: the tiles of
 # the compact kernel, wide in coefficients (the key side of a stage is a
 # window of bk + wq bytes, so what a tile draws from L2 is its digit rows),
@@ -248,14 +257,15 @@ def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
     The tile: 16 gates x 8 coefficients up to 16 gates (the key stream
     bounds it: many small tiles spread it over every SM); else 128 x 32 when
     that still gives at least three quarters of the SMs a tile, else 64 x 16;
-    and 256 x 32, which draws a quarter less through L2, where it pads the
-    batch no further, gives every SM a tile and keeps the rounds as busy.
-    A geometry whose R*bs is no multiple of the 128-byte stages takes the
-    one 64 x 16 tile with 64-byte stages at every B. The grid: every tile a block, up to what is resident at once (the
+    and the wgmma tile (``WGMMA_CONFIG``, 128 x 64) instead of 128 x 32
+    where its tiles fill every SM at least once (wide batches: 1.46-1.71x
+    faster there on an H100). A geometry whose R*bs is no multiple of the
+    128-byte stages takes the one 64 x 16 tile with 64-byte stages at every B. The grid: every tile a block, up to what is resident at once (the
     tile's ``resident`` per SM, within shared memory, threads and the block
     limit): blocks that share an SM share its rounds, so more of them only
-    hide latency. A ragged last round is left ragged: tiles are dealt
-    round-robin, gate tiles of one key box side by side."""
+    hide latency; the wgmma tile's grid is whole clusters, a pair of gate
+    tiles of one key box each. A ragged last round is left ragged: tiles are
+    dealt round-robin, gate tiles of one key box side by side."""
     if B < 1:
         raise ValueError(f"a launch needs at least one gate, got {B}")
     rbs = geom.R * geom.bs
@@ -266,18 +276,18 @@ def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
     if B * geom.C * geom.N >= 2**31:
         raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
 
-    small, mid, big, huge = 0, 1, 2, 3
+    small, mid, big = 0, 1, 2
     if rbs % ROTATE_CONFIGS[small].bk:
         config = NARROW_CONFIG
     elif B <= ROTATE_CONFIGS[small].bm:
         config = small
     else:
         m_big, n_big = _tile_counts(ROTATE_CONFIGS[big], B, geom)
-        m_huge, _ = _tile_counts(ROTATE_CONFIGS[huge], B, geom)
         config = big if 4 * m_big * n_big >= 3 * sm_count else mid
-        if m_huge * 2 == m_big and m_huge * n_big >= sm_count and \
-                _fill(m_huge * n_big, sm_count) >= _fill(m_big * n_big, sm_count):
-            config = huge
+        wide = ROTATE_CONFIGS[WGMMA_CONFIG]
+        m_wide, n_wide = _tile_counts(wide, B, geom)
+        if config == big and geom.bs % wide.wq == 0 and m_wide * n_wide >= sm_count:
+            config = WGMMA_CONFIG
     return _plan(config, ROTATE_CONFIGS[config], B, geom, sm_count)
 
 
@@ -297,6 +307,9 @@ def _plan(config: int, cfg: TileConfig, B: int, geom: FBlockGeometry,
     per_sm = min(SM_SHARED_BYTES // (cfg.smem_bytes + BLOCK_SHARED_OVERHEAD),
                  SM_MAX_THREADS // cfg.threads, SM_MAX_BLOCKS, cfg.resident)
     blocks = min(tiles, per_sm * sm_count)
+    if cfg.wgmma:  # whole clusters, a pair of gate tiles each
+        pairs = -(-m_tiles // WGMMA_CLUSTER) * n_tiles
+        blocks = WGMMA_CLUSTER * min(pairs, max(1, per_sm * sm_count // WGMMA_CLUSTER))
     return RotatePlan(config, cfg, m_tiles, m_tiles * cfg.bm, n_tiles, tiles, blocks,
                       tiles / sm_count, _fill(tiles, sm_count), cfg.smem_bytes,
                       B * geom.R * geom.N)
@@ -479,6 +492,7 @@ def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
     kernel's accumulator, and the digit scratch are allocated here, and the
     launch goes on the current stream. ``blind_rotate_cuda.launches`` counts
     the launches, ``blind_rotate_cuda.rows`` the ciphertexts they rotated,
+    ``blind_rotate_cuda.by_config`` the launches per tile config (a dict),
     ``blind_rotate_cuda.grid`` is the last launch's grid.
     """
     check_args(acc_a, key, bara, geom, decomp_length, log2_base, stepvec)
@@ -496,11 +510,14 @@ def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
                                           decomp_length, log2_base, offset, stepvec)
     blind_rotate_cuda.launches += 1
     blind_rotate_cuda.rows += B
+    by_config = blind_rotate_cuda.by_config
+    by_config[plan.config] = by_config.get(plan.config, 0) + 1
     return out
 
 
 blind_rotate_cuda.launches = 0
 blind_rotate_cuda.rows = 0
+blind_rotate_cuda.by_config = {}
 blind_rotate_cuda.grid = 0
 
 

@@ -66,6 +66,7 @@ SHAPES = {
     "fast_4096": (lambda: _single("tfhe_128_tpu_fast"), 4096, "stepvec"),
     "l3_1024": (lambda: _single("tfhe_128_tpu"), 1024, "stepvec"),
     "l3_1": (lambda: _single("tfhe_128_tpu"), 1, "stepvec"),
+    "t128_1024": (lambda: _single("tfhe_128"), 1024, "stepvec"),
     "mk2_1024": (lambda: _mk("mk_2party_3gen", 2), 1024, "stepvec"),
     "mk2_stage_256": (lambda: _mk("mk_2party_3gen", 1), 256, "acc"),   # one party's 520 steps
     "mk2_stage_64": (lambda: _mk("mk_2party_3gen", 1), 64, "acc"),
@@ -174,7 +175,7 @@ def main() -> int:
             make_plan = cuda_rotate.sel_plan if compact else cuda_rotate.rotate_plan
             plan = make_plan(B, geom, l,
                              torch.cuda.get_device_properties(dev).multi_processor_count)
-            rec["tile"] = [plan.tile.bm, plan.tile.wq]
+            rec["tile"], rec["config"] = [plan.tile.bm, plan.tile.wq], plan.config
             rec["tiles"], rec["grid"] = plan.tiles, kernel.grid
         if args.plain:
             rec["plain_ms"] = event_ms(lambda: plain(a, key, bara, *rot, stepvec=sv), 1)
