@@ -536,6 +536,7 @@ def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
     allocation and stream as for ``blind_rotate_cuda``.
     ``blind_rotate_sel_cuda.launches`` counts the launches,
     ``blind_rotate_sel_cuda.rows`` the ciphertexts they rotated,
+    ``blind_rotate_sel_cuda.by_config`` the launches per tile config (a dict),
     ``blind_rotate_sel_cuda.grid`` is the last launch's grid.
     """
     check_sel_args(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec)
@@ -553,11 +554,14 @@ def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
                                               decomp_length, log2_base, offset, stepvec)
     blind_rotate_sel_cuda.launches += 1
     blind_rotate_sel_cuda.rows += B
+    by_config = blind_rotate_sel_cuda.by_config
+    by_config[plan.config] = by_config.get(plan.config, 0) + 1
     return out
 
 
 blind_rotate_sel_cuda.launches = 0
 blind_rotate_sel_cuda.rows = 0
+blind_rotate_sel_cuda.by_config = {}
 blind_rotate_sel_cuda.grid = 0
 
 
