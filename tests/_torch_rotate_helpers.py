@@ -17,6 +17,12 @@ does the same for csrc/blind_rotate_sel.cu, whose key operand is made on the
 SM: the window of 16-byte chunks of a reversed line (wrapped mod 2N), its
 three byte-shifted copies (a funnel shift a word, ``window_stride`` words
 apart), and the two words a thread reads per MMA fragment.
+``emulate_sel_wgmma_kernel`` does it for the compact kernel's wgmma tile
+(csrc/rotate_sel_wgmma.cuh): the same windows and copies, the four words of
+each thread's register fragment of A (the key: coefficient rows, digit
+columns), the TMA box of digit rows and its 128-byte swizzle as the MMA's B
+operand reads it, the two warpgroups' limbs (2w, 2w + 1), each limb's
+accumulator, and the join of the two warpgroups' folded words.
 """
 
 import numpy as np
@@ -75,7 +81,19 @@ def world(name, B, seed):
     return samples, fb, acc, bara, barb, (geom, l, lb, offset)
 
 
-SEL_GEOMETRIES = {**GEOMETRIES, "k2_rounded_N256": lambda: single(twin(256))}
+def mk_hi_word(parties, steps=2):
+    """The hi-word chain of the 3gen set of ``parties`` at full width (N =
+    1024, 8 limb columns) over its first ``steps`` steps."""
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.mk import keys3gen
+    p = P.PARAMETER_REGISTRY[f"mk_{parties}party_3gen"]()
+    tg = TGswParams(p.gsw_decomp_length, p.gsw_log2_base, 32)
+    geom = keys3gen.mk_fb_geometry(p, parties)._replace(n=steps)
+    return geom, tg.decomp_length, tg.log2_base, tg.offset
+
+
+SEL_GEOMETRIES = {**GEOMETRIES, "k2_rounded_N256": lambda: single(twin(256)),
+                  "mk8_N1024": lambda: mk_hi_word(8)}
 
 
 def tile_order(plan, nb, C, QT):
@@ -84,7 +102,7 @@ def tile_order(plan, nb, C, QT):
     wgmma tile, pair tiles round-robin over the clusters of the plan's grid,
     each pair the gate tiles 2p and 2p + 1 (by cluster rank) of one key box."""
     MT = plan.m_tiles
-    if not plan.tile.wgmma:
+    if not plan.tile.wgmma or plan.tile.compact:
         for tile in range(plan.tiles):
             mt, nt = tile % MT, tile // MT
             qt, nt = nt % QT, nt // QT
@@ -102,13 +120,15 @@ def tile_order(plan, nb, C, QT):
                 yield cluster * (pt % MP) + rank, nt // C, nt % C, qt
 
 
-def emulate_frame(acc0, bara, geom, l, lb, offset, plan, key_rows):
+def emulate_frame(acc0, bara, geom, l, lb, offset, plan, key_rows=None, tile_words=None):
     """The frame both kernels share (csrc/rotate_gemm.cuh), step by step in
     numpy: uint32 accumulator words, int8 digit rows of padded_m x K, the
     plan's tiles in the kernel's order (``tile_order``). ``key_rows(s, j,
     col, q0)`` is the (wq, K) key operand of limb column ``col`` for output
     coefficients j*bs + q0 .. + wq, in the kernel's reduction order; the
-    wgmma tile stacks the limbs' operands (limb-major rows) into one."""
+    wgmma tile stacks the limbs' operands (limb-major rows) into one. Or
+    ``tile_words(s, rows, j, poly, q0)`` gives a tile's (bm, wq) uint32 words
+    (its limbs folded) from its (bm, K) digit rows."""
     B, n = bara.shape
     N, C, bs, nb, R = geom.N, geom.C, geom.bs, geom.nb, geom.R
     rbs, K = R * bs, nb * R * bs
@@ -147,6 +167,11 @@ def emulate_frame(acc0, bara, geom, l, lb, offset, plan, key_rows):
                 continue
             seen.add((mt, j, poly, qt))
             col0, nl = groups[poly]
+            if tile_words is not None:
+                v = tile_words(s, dig[m0:m0 + bm], j, poly, q0)
+                rows_in = min(bm, B - m0)
+                acc[m0:m0 + rows_in, poly, j * bs + q0:j * bs + q0 + wq] += v[:rows_in]
+                continue
             A = dig[m0:m0 + bm].astype(np.int64)
             v = np.zeros((bm, wq), np.uint32)
             if plan.tile.wgmma:  # one B operand, the limbs' 64-row boxes one after the other
@@ -257,6 +282,111 @@ def emulate_sel_kernel(acc0, key, bara, geom, l, lb, offset, plan):
         return np.concatenate(pieces, axis=1)  # (WQ, K)
 
     return emulate_frame(acc0, bara, geom, l, lb, offset, plan, key_rows)
+
+
+def emulate_sel_wgmma_kernel(acc0, key, bara, geom, l, lb, offset, plan):
+    """csrc/rotate_sel_wgmma.cuh over the compact kernel layout. Per stage kc
+    of a tile (BK digits u0.. of line r) and limb: the window and its three
+    shifted copies as ``emulate_sel_kernel`` makes them; the register
+    fragment of A of thread ``tid`` of a warpgroup, k32 step ks: wgmma rows
+    16*(tid/32) + (tid%32)/4 (+8) are the tile's coefficients tl = 8*(tid/32)
+    + (tid%32)/4 (+32), bytes 4*(tid%4) (+16) of the step: the words at 0 and
+    +4 from word (a%4)*W + a/4 + 8*ks, a = WQ - tl + 4*(tid%4), loaded at
+    step ks, and those of row tl + 32 (-8 and -4) loaded at step 0 and at
+    later steps kept from the previous step's row tl;
+    the digit box written by TMA with the 128-byte swizzle (16-byte chunk c of
+    row r at r*128 + (c ^ r%8)*16) and read back through the same swizzle by
+    the MMA's descriptor (chunks 2*ks, 2*ks + 1). Warpgroup w adds every
+    stage's products into the accumulators of limbs 2w and 2w + 1; each
+    folds its limbs (sum << shift), and warpgroup 0 adds warpgroup 1's
+    words."""
+    cfg = plan.tile
+    BK, WQ, BM = cfg.bk, cfg.wq, cfg.bm
+    assert cfg.wgmma and cfg.compact and (BM, WQ, BK) == (64, 64, 128)
+    N, bs, nb, R = geom.N, geom.bs, geom.nb, geom.R
+    ncols, rbs, two_n = len(geom.cols), geom.R * geom.bs, 2 * geom.N
+    groups = cuda_rotate.poly_groups(geom)
+    assert all(nl == cuda_rotate.MAX_LIMBS for _, nl in groups) and bs % BK == 0
+    nk_i = rbs // BK
+    nk = nb * nk_i
+    wlen, W = BK + WQ, cuda_rotate.window_stride(BK + WQ)
+    wwords = wlen // 4
+    assert cfg.smem_bytes == cfg.stages * (BM * BK + 4 * 4 * W * 4) + 1024 + 16 * cfg.stages \
+        + 4 * BM * WQ
+    flat = key.numpy().reshape(-1)
+    step_bytes = ncols * R * two_n
+    # the A fragment: tid, register -> coefficient of the tile and the word
+    # of the copies; a register of row tl + 32 at step ks > 0 is the one of
+    # row tl loaded at step ks - 1 (8 words back)
+    tid, reg = np.meshgrid(np.arange(128), np.arange(4), indexing="ij")
+    tl = 8 * (tid // 32) + (tid % 32) // 4
+    frag_a = WQ - tl + 4 * (tid % 4)
+    loaded = (frag_a & 3) * W + (frag_a >> 2) + np.array([0, 0, 4, 4])[reg]  # row tl's
+    row = tl + 32 * (reg % 2)
+    kbyte = 4 * (tid % 4) + 16 * (reg // 2)
+    kept = reg % 2 == 1  # row tl + 32: the previous step's row tl words
+    word0 = np.where(kept, loaded - 8, loaded)
+    # the digit box: where TMA puts byte b of chunk c of row r, and which
+    # chunk the descriptor of k32 step ks reads for row n
+    r_, c_, b_ = np.meshgrid(np.arange(BM), np.arange(BK // 16), np.arange(16), indexing="ij")
+    swz = r_ * BK + ((c_ ^ (r_ % 8)) << 4) + b_
+    chunk_x = 16 * np.arange(wlen // 16)
+    kcs = np.arange(nk)
+    i_, kk_ = kcs // nk_i, (kcs % nk_i) * BK
+    r_line = kk_ // bs
+    u0 = i_ * bs + kk_ - r_line * bs
+
+    def stage_key(s, col, base):
+        """(nk, WQ, BK) int8: each stage's key operand as the fragments hold it."""
+        src = ((base[:, None] + chunk_x[None, :]) & (two_n - 1))[:, :, None] + np.arange(16)
+        line = s * step_bytes + (col * R + r_line) * two_n
+        words = np.ascontiguousarray(flat[line[:, None] + src.reshape(nk, -1)]).view("<u4")
+        hi = np.concatenate([words[:, 1:], np.zeros((nk, 1), np.uint32)], axis=1)
+        smem = np.full((nk, 4 * W), 0xDEADBEEF, np.uint32)
+        smem[:, :wwords] = words
+        for sft in (1, 2, 3):
+            smem[:, sft * W:sft * W + wwords - 1] = (
+                (words >> np.uint32(8 * sft)) | (hi << np.uint32(32 - 8 * sft)))[:, :-1]
+        op = np.zeros((nk, WQ, BK), np.int8)
+        prev = smem[:, loaded - 8]  # row tl + 32 at step 0: loaded then
+        for ks in range(BK // 32):
+            now = smem[:, loaded + 8 * ks]
+            words = np.where(kept, prev, now)
+            assert (words == smem[:, word0 + 8 * ks]).all()
+            prev = now  # kept for the next step's row tl + 32
+            got = np.ascontiguousarray(words).view(np.int8)  # (nk, 128, 16)
+            got = got.reshape(nk, 128, 4, 4)
+            for rg in range(4):
+                for b in range(4):
+                    op[:, row[:, rg], 32 * ks + kbyte[:, rg] + b] = got[:, :, rg, b]
+        return op
+
+    def tile_words(s, rows, j, poly, q0):
+        col0, nl = groups[poly]
+        box = np.zeros((nk, BM * BK), np.int8)  # TMA: rows past B arrive as zeros
+        box[:, swz.reshape(-1)] = rows.reshape(BM, nk, BK).transpose(1, 0, 2).reshape(nk, -1)
+        digits = np.zeros((nk, BM, BK), np.int8)  # as the MMA reads them
+        for ks in range(BK // 32):
+            for h in range(2):
+                c = 2 * ks + h
+                at = np.arange(BM)[:, None] * BK + ((c ^ (np.arange(BM) % 8)) << 4)[:, None] \
+                    + np.arange(16)
+                digits[:, :, 16 * c:16 * c + 16] = box[:, at]
+        base = u0 - j * bs - q0 - WQ
+        folded = []
+        for wgi in range(2):  # warpgroup wgi: limbs 2*wgi, 2*wgi + 1, every stage
+            v = np.zeros((WQ, BM), np.uint32)
+            for limb in (2 * wgi, 2 * wgi + 1):
+                op = stage_key(s, col0 + limb, base)
+                d = sum(op[kc].astype(np.float64) @ digits[kc].astype(np.float64).T
+                        for kc in range(nk))
+                assert np.abs(d).max() < 2**31
+                v += d.astype(np.int64).astype(np.int32).view(np.uint32) << np.uint32(
+                    geom.cols[col0 + limb][1])
+            folded.append(v)
+        return (folded[0] + folded[1]).T  # the join; (gates, coefficients)
+
+    return emulate_frame(acc0, bara, geom, l, lb, offset, plan, tile_words=tile_words)
 
 
 def mk_set(parties):

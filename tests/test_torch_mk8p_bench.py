@@ -219,7 +219,8 @@ def test_workcount_by_hand():
 def test_sel_launches_per_config_start_empty_and_the_cpu_adds_none(compact):
     """A fresh process holds no launch in ``blind_rotate_sel_cuda.by_config``;
     the CPU route adds none; the tile the cell's shape takes is one of the
-    compact kernel's configs (T3, 64 gates x 64 coefficients, on 132 SMs)."""
+    compact kernel's configs (the wgmma tile, 64 gates x 64 coefficients, on
+    132 SMs)."""
     out = subprocess.run([sys.executable, "-c",
                           "from torus_fhe_tpu_torch.ops import cuda_rotate as c; "
                           "f = c.blind_rotate_sel_cuda; print(f.by_config, f.launches)"],
@@ -233,7 +234,8 @@ def test_sel_launches_per_config_start_empty_and_the_cpu_adds_none(compact):
     assert cuda_rotate.blind_rotate_sel_cuda.by_config == counts
     p = P.mktfhe_parameters_8party_3gen()
     plan = cuda_rotate.sel_plan(256, keys3gen.mk_fb_geometry(p, 8), 4, 132)
-    assert plan.config == 3 and cuda_rotate.SEL_CONFIGS[plan.config] == plan.tile
+    assert plan.config == cuda_rotate.SEL_WGMMA_CONFIG == 6
+    assert cuda_rotate.SEL_CONFIGS[plan.config] == plan.tile and plan.tile.wgmma
 
 
 @pytest.fixture

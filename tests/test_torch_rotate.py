@@ -318,3 +318,72 @@ def test_wide_rotate_leaves_one_rotate_record(cuda_device, tmp_path):
                and ev.get("args", {}).get("correlation") not in guards]
     assert len(kernels) == 1, [ev.get("name") for ev in kernels]
     assert tracing.category(kernels[0]["name"], kernels[0]["cat"]) == tracing.ROTATE
+
+
+def _sel_world(parties, B, device, steps=12):
+    """The compact kernel's world at the real 3gen geometry of ``parties``
+    over its first ``steps`` steps: random compact lines in the kernel layout
+    (steps, ncols, R, 2N) and random inputs, on ``device``."""
+    p = P.PARAMETER_REGISTRY[f"mk_{parties}party_3gen"]()
+    tg = P.TGswParams(p.gsw_decomp_length, p.gsw_log2_base, 32)  # the hi-word chain's gadget
+    geom = keys3gen.mk_fb_geometry(p, parties)._replace(n=steps)
+    g = torch.Generator(device=device).manual_seed(1000 * parties + B)
+    sel = torch.randint(-128, 128, (steps,) + fblock.sel_kernel_layout_shape(geom), generator=g,
+                        dtype=torch.int8, device=device)
+    acc = torch.randint(-2**31, 2**31 - 1, (B, geom.C, geom.N), generator=g, dtype=torch.int32,
+                        device=device)
+    bara = torch.randint(0, 2 * geom.N, (B, steps), generator=g, dtype=torch.int32, device=device)
+    barb = torch.randint(-geom.N, geom.N, (B,), generator=g, dtype=torch.int32, device=device)
+    return sel, acc, bara, barb, (geom, tg.decomp_length, tg.log2_base, tg.offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parties, B, sms", [(8, 256, None), (8, 200, None), (4, 256, None),
+                                             (8, 96, None), (8, 130, 1)])
+def test_sel_wgmma_tile_equals_plain_version(cuda_device, monkeypatch, parties, B, sms):
+    """The compact kernel's wgmma tile (csrc/rotate_sel_wgmma.cuh) word for
+    word against the plain version on the real 3gen geometries' first 12
+    steps, in both init modes, wherever ``sel_plan`` picks it: 8 parties at
+    B=256 and at B=200 (a ragged last gate tile), 4 parties at B=256, 8 at
+    B=96 (64 tiles: half the SMs), and a plan for a card of one SM (130
+    gates: 96 tiles a step through one block, the last gate tile ragged); ``blind_rotate_sel_cuda.by_config`` counts
+    the launches under the tile's config."""
+    if sms:
+        monkeypatch.setattr(cuda_rotate, "_sm_count", lambda device: sms)
+    sel, acc, bara, barb, args = _sel_world(parties, B, cuda_device)
+    plan = cuda_rotate.sel_plan(B, args[0], args[1], cuda_rotate._sm_count(cuda_device))
+    assert plan.config == cuda_rotate.SEL_WGMMA_CONFIG and plan.tile.wgmma
+    before = cuda_rotate.blind_rotate_sel_cuda.by_config.get(plan.config, 0)
+    for acc_a, stepvec in ((acc, None), (None, (-(1 << 29), barb))):
+        got = cuda_rotate.blind_rotate_sel_cuda(acc_a, sel, bara, *args, stepvec=stepvec)
+        want = fblock.blind_rotate_streamed(acc_a, sel, bara, *args, stepvec=stepvec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert 1 <= cuda_rotate.blind_rotate_sel_cuda.grid <= plan.blocks  # all resident
+    assert cuda_rotate.blind_rotate_sel_cuda.by_config[plan.config] == before + 2
+
+
+@pytest.mark.cuda
+def test_sel_wgmma_rotate_leaves_one_compact_record(cuda_device, tmp_path):
+    """One launch of the compact kernel's wgmma tile under torch.profiler
+    leaves exactly one kernel record, which the benchmark's trace files as
+    the compact-key rotate, and ``by_config`` counts it under the tile."""
+    from perfbench import tracing
+    from torus_fhe_tpu_torch.utils import profiling
+
+    sel, acc, bara, barb, args = _sel_world(8, 256, cuda_device)
+    assert cuda_rotate.sel_plan(256, args[0], args[1],
+                                cuda_rotate._sm_count(cuda_device)).tile.wgmma
+    before = cuda_rotate.blind_rotate_sel_cuda.by_config.get(cuda_rotate.SEL_WGMMA_CONFIG, 0)
+    torch.cuda.synchronize()
+    with profiling.device_trace(str(tmp_path), cuda_device):
+        cuda_rotate.blind_rotate_sel_cuda(None, sel, bara, *args, stepvec=(1 << 29, barb))
+    events = [ev for path in profiling._trace_files(str(tmp_path))
+              for ev in profiling._load(path) if ev.get("ph") == "X"]
+    guards = set().union(*profiling._guard_correlations(events).values())
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"
+               and ev.get("args", {}).get("correlation") not in guards]
+    assert len(kernels) == 1, [ev.get("name") for ev in kernels]
+    assert tracing.category(kernels[0]["name"], kernels[0]["cat"]) == tracing.ROTATE_SEL
+    assert tracing.ROTATE_SEL == "blind_rotate_sel (compact key)"
+    assert cuda_rotate.blind_rotate_sel_cuda.by_config[cuda_rotate.SEL_WGMMA_CONFIG] == before + 1

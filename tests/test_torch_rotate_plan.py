@@ -77,22 +77,33 @@ def test_sel_kernel_layout_is_a_permutation_of_the_lines(name):
         assert torch.equal(cuda_rotate.rotate_streamed(a, key, bara, *args, stepvec=sv), want)
 
 
+# the wgmma tile's shared memory: per stage a digit box of 64 x 128 bytes and
+# four limbs' windows (four copies of 56 words), 1 KiB to align the ring, a
+# full and an empty mbarrier a stage, the join of 64 x 64 words
+WGMMA_SMEM = 8 * (64 * 128 + 4 * 4 * 56 * 4) + 1024 + 8 * 16 + 64 * 64 * 4
+
+
 # the 8-party set (N=1024, C=2, l=4: 128 / 64 / 32 column tiles of 16 / 32 /
-# 64 coefficients) on the 132 SMs of an H100: (tile, tiles a step, grid asked
-# for, shared memory a block, digit scratch)
-@pytest.mark.parametrize("B, tile, tiles, blocks, smem, scratch", [
-    (1, (16, 16), 128, 128, 8 * 4 * (16 * 128 + 2560), 8192),      # eight warps split K
-    (64, (64, 16), 128, 128, 4 * 4 * (64 * 128 + 2560), 64 * 8192),  # four groups of four
-    (256, (64, 64), 128, 128, 4 * (64 * 128 + 3584), 256 * 8192),
-    (1024, (128, 64), 256, 132, 4 * (128 * 128 + 3584), 1024 * 8192)])
-def test_sel_plan_at_the_8_party_set(B, tile, tiles, blocks, smem, scratch):
+# 64 coefficients) on the 132 SMs of an H100: (tile, wgmma, tiles a step,
+# grid asked for, shared memory a block, digit scratch). Up to 64 gates the
+# mma.sync tiles that split the reduction; above, the wgmma tile, at half the
+# SMs (96 gates) as at four rounds of them (1024)
+@pytest.mark.parametrize("B, tile, wgmma, tiles, blocks, smem, scratch", [
+    (1, (16, 16), False, 128, 128, 8 * 4 * (16 * 128 + 2560), 8192),  # eight warps split K
+    (64, (64, 16), False, 128, 128, 4 * 4 * (64 * 128 + 2560), 64 * 8192),  # four groups of four
+    (96, (64, 64), True, 64, 64, WGMMA_SMEM, 96 * 8192),
+    (256, (64, 64), True, 128, 128, WGMMA_SMEM, 256 * 8192),
+    (1024, (64, 64), True, 512, 132, WGMMA_SMEM, 1024 * 8192)])
+def test_sel_plan_at_the_8_party_set(B, tile, wgmma, tiles, blocks, smem, scratch):
     geom, l = mk_set(8)
     plan = cuda_rotate.sel_plan(B, geom, l, 132)
     assert (plan.tile.bm, plan.tile.wq) == tile and plan.tile.bk == 128
+    assert plan.tile.wgmma == wgmma == (plan.config == cuda_rotate.SEL_WGMMA_CONFIG)
     assert (plan.tiles, plan.blocks, plan.smem_bytes, plan.scratch_bytes) == \
         (tiles, blocks, smem, scratch)
     assert plan.m_tiles == -(-B // tile[0]) and plan.padded_m == plan.m_tiles * tile[0]
-    assert plan.waves == tiles / 132 and plan.fill == (tiles / 264 if tiles > 132 else 1.0)
+    assert plan.waves == tiles / 132
+    assert plan.fill == (tiles / (-(-tiles // 132) * 132) if tiles > 132 else 1.0)
     # every block of the grid is resident at once: shared memory, threads
     per_sm = -(-plan.blocks // 132)
     assert per_sm * (plan.smem_bytes + 1024) <= 228 * 1024

@@ -1,6 +1,7 @@
 """The indexing of csrc/blind_rotate_sel.cu (the compact-key kernel),
-emulated in numpy on the CPU: ``emulate_sel_kernel``
-(tests/_torch_rotate_helpers.py) must be word-equal to
+emulated in numpy on the CPU: ``emulate_sel_kernel`` for its mma.sync tiles
+and ``emulate_sel_wgmma_kernel`` for its wgmma tile (csrc/
+rotate_sel_wgmma.cuh; tests/_torch_rotate_helpers.py) must be word-equal to
 ``fblock.blind_rotate_streamed`` (exact integer arithmetic). All inputs come
 from a numpy seed; the tolerance is 0.
 """
@@ -8,7 +9,7 @@ from a numpy seed; the tolerance is 0.
 import numpy as np
 import pytest
 import torch
-from _torch_rotate_helpers import SEL_GEOMETRIES, emulate_sel_kernel
+from _torch_rotate_helpers import SEL_GEOMETRIES, emulate_sel_kernel, emulate_sel_wgmma_kernel
 
 from torus_fhe_tpu_torch.ops import cuda_rotate, fblock
 
@@ -24,17 +25,22 @@ def _one_torch_thread():
 
 
 # (B, SM count) -> tile at multikey_N256 (32, 16, 8 column tiles of 16, 32, 64
-# coefficients): below, at and above one gate tile, every tile shape
+# coefficients, four limb columns a polynomial): below, at and above one gate
+# tile; above one 64-gate tile the wgmma tile (64 x 64) on any card
 SEL_CASES = {(3, 132): (16, 16), (16, 132): (16, 16), (20, 132): (64, 16), (64, 132): (64, 16),
-             (70, 40): (64, 32), (70, 16): (64, 64), (130, 1): (128, 64)}
+             (70, 40): (64, 64), (70, 16): (64, 64), (130, 1): (64, 64)}
 
 
 # every case at the 3gen N=256 twin and at N=64 (64-byte stages); the split
 # tile, a ragged middle one and the widest at the N=512 and the 11-column twins
+# (the mma.sync tiles 64 x 32, 64 x 64 and 128 x 64 there: a polynomial of
+# three limb columns); the wgmma tile at the 8-party chain's full width, with
+# a ragged last gate tile
 @pytest.mark.parametrize("name, B, sms", [
     (name, B, sms) for name in ("multikey_N256", "k2_rounded_N64") for B, sms in SEL_CASES] + [
     (name, B, sms) for name in ("multikey_N512", "k2_rounded_N256")
-    for B, sms in ((3, 132), (70, 16), (130, 1))])
+    for B, sms in ((3, 132), (70, 16), (130, 1))] + [
+    ("k2_rounded_N256", 70, 20), ("k2_rounded_N256", 70, 40), ("mk8_N1024", 72, 8)])
 def test_sel_kernel_emulation_equals_plain_version(name, B, sms):
     geom, l, lb, offset = SEL_GEOMETRIES[name]()
     geom = geom._replace(n=2 if B > 20 else 3)  # a second step reads what the first wrote
@@ -55,9 +61,20 @@ def test_sel_kernel_emulation_equals_plain_version(name, B, sms):
         assert plan.tile.bk == 128
         if name == "multikey_N256":
             assert (plan.tile.bm, plan.tile.wq) == SEL_CASES[B, sms]
-    got = emulate_sel_kernel(acc, key, bara, *args, plan)
+    # the wgmma tile above one 64-gate tile where every polynomial has four
+    # limb columns; else the mma.sync tiles, 64 x 32 and wider where they
+    # fill three quarters of the SMs
+    four = all(nl == 4 for _, nl in cuda_rotate.poly_groups(geom))
+    assert plan.tile.wgmma == (four and geom.bs % 128 == 0 and B > 64)
+    if not four and geom.bs % 128 == 0 and B > 16:
+        wide = plan.tile.wq > 16
+        assert wide == (4 * -(-B // plan.tile.bm) * geom.nb * geom.C * geom.bs //
+                        plan.tile.wq >= 3 * sms)
+    assert plan.tile.wgmma == (plan.config == cuda_rotate.SEL_WGMMA_CONFIG)
+    emulate = emulate_sel_wgmma_kernel if plan.tile.wgmma else emulate_sel_kernel
+    got = emulate(acc, key, bara, *args, plan)
     assert torch.equal(got, fblock.blind_rotate_streamed(acc, lines, bara, *args))
     mu = -(1 << 29)
-    got = emulate_sel_kernel(fblock.stepvec_acc0(mu, barb, geom), key, bara, *args, plan)
+    got = emulate(fblock.stepvec_acc0(mu, barb, geom), key, bara, *args, plan)
     assert torch.equal(got, fblock.blind_rotate_streamed(None, lines, bara, *args,
                                                          stepvec=(mu, barb)))

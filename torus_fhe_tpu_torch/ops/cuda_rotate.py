@@ -55,7 +55,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"blind_rotate": os.path.join(CSRC, "blind_rotate.cu"),
            "blind_rotate_sel": os.path.join(CSRC, "blind_rotate_sel.cu")}
-HEADERS = [os.path.join(CSRC, "rotate_gemm.cuh"), os.path.join(CSRC, "rotate_wgmma.cuh")]
+HEADERS = [os.path.join(CSRC, name)
+           for name in ("rotate_gemm.cuh", "rotate_wgmma.cuh", "rotate_sel_wgmma.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -86,9 +87,12 @@ class TileConfig(NamedTuple):
     that many). With ``ksplit`` > 1 the block's warps split the tile's
     reduction, each through a ring of its own. ``compact``: the key side of
     a stage is a window of the compact lines (blind_rotate_sel.cu), not rows
-    of the expanded key (blind_rotate.cu). ``wgmma``: the tile of
-    csrc/rotate_wgmma.cuh, warpgroup MMAs fed by a TMA ring, two blocks of a
-    cluster sharing each key box (WGMMA_CLUSTER)."""
+    of the expanded key (blind_rotate.cu). ``wgmma``: warpgroup MMAs fed by
+    a TMA ring: over the expanded key the tile of csrc/rotate_wgmma.cuh, two
+    blocks of a cluster sharing each key box (WGMMA_CLUSTER); over the
+    compact key the tile of csrc/rotate_sel_wgmma.cuh, the key window as the
+    MMAs' register operand, two warpgroups splitting the limbs and joining
+    their folded words in shared memory."""
 
     bm: int
     wq: int
@@ -104,13 +108,16 @@ class TileConfig(NamedTuple):
     def smem_bytes(self) -> int:
         """The rings: per stage ``bk`` bytes of ``bm`` digit rows and, of the
         key, MAX_LIMBS * ``wq`` rows of ``bk`` bytes, or (compact) per limb
-        four shifted copies of the ``bk + wq``-byte window; the wgmma tile's
+        four shifted copies of the ``bk + wq``-byte window; the wgmma tiles'
         ring also takes 1,024 bytes to align it and a full and an empty
-        mbarrier a stage."""
+        mbarrier a stage, and the compact one the words of a ``bm`` x ``wq``
+        tile that one warpgroup hands the other."""
         key = (MAX_LIMBS * 4 * window_stride(self.bk + self.wq) * 4 if self.compact
                else MAX_LIMBS * self.wq * self.bk)
         ring = self.ksplit * self.stages * (self.bm * self.bk + key)
-        return ring + 1024 + 16 * self.stages if self.wgmma else ring
+        if not self.wgmma:
+            return ring
+        return ring + 1024 + 16 * self.stages + (4 * self.bm * self.wq if self.compact else 0)
 
 
 # indexed by the ``config`` argument of blind_rotate_launch: three mma.sync
@@ -126,14 +133,17 @@ WGMMA_CLUSTER = 2  # blocks of a cluster: gate tiles that share a key box
 # indexed by the ``config`` argument of blind_rotate_sel_launch: the tiles of
 # the compact kernel, wide in coefficients (the key side of a stage is a
 # window of bk + wq bytes, so what a tile draws from L2 is its digit rows),
-# and the one with 64-byte stages for bs = 64 (a stage stays inside one line)
+# the one with 64-byte stages for bs = 64 (a stage stays inside one line),
+# and the wgmma tile above 64 gates (two consumer warpgroups and four
+# producer warps, 8 stages)
 SEL_CONFIGS = (TileConfig(16, 16, 4, 256, 1, 128, 8, True),
                TileConfig(64, 16, 4, 512, 1, 128, 4, True),
                TileConfig(64, 32, 4, 128, 3, 128, 1, True),
                TileConfig(64, 64, 4, 256, 1, 128, 1, True),
                TileConfig(128, 64, 4, 256, 1, 128, 1, True),
-               TileConfig(64, 16, 4, 128, 3, 64, 1, True))
-SEL_NARROW_CONFIG = 5
+               TileConfig(64, 16, 4, 128, 3, 64, 1, True),
+               TileConfig(64, 64, 8, 384, 1, 128, 1, True, True))
+SEL_NARROW_CONFIG, SEL_WGMMA_CONFIG = 5, 6
 # peak rates of an H100 SXM that the bounds are taken against: dense int8
 # tensor-core operations, float64 outside the tensor cores (NVIDIA's data
 # sheet), and device-memory bytes
@@ -322,17 +332,22 @@ def sel_plan(B: int, geom: FBlockGeometry, decomp_length: int, sm_count: int) ->
     draws from L2 is its digit rows, once per column tile: the widest tile
     in coefficients wins where it fills the card. Up to 16 gates: 16 x 16,
     eight warps splitting the reduction (one gate's columns spread over every
-    SM). Above: the first of 128 gates x 64 coefficients, 64 x 64, 64 x 32
-    that gives at least three quarters of the SMs a tile, else 64 x 16 with
-    four groups of four warps splitting the reduction. A stage stays inside
-    one line, so a geometry whose bs is no multiple of the 128-byte stages
-    (N = 64) takes the one 64 x 16 tile with 64-byte stages at every B. The
-    grid is cut as in ``rotate_plan``."""
+    SM). Above, where every polynomial has four limb columns (the 3gen
+    sets): the wgmma tile (``SEL_WGMMA_CONFIG``, 64 x 64) from two of its
+    gate tiles up, since at 4 and 8 parties it beats the mma.sync tiles at
+    every batch from 96 gates (at half the SMs: 138 against 224 ms at 8
+    parties, B=96, on an H100), and 64 x 16 with four groups of four warps
+    splitting the reduction below (111 against 138 ms at B=64). Otherwise
+    the first of 128 gates x 64 coefficients, 64 x 64, 64 x 32 that gives at
+    least three quarters of the SMs a tile, else 64 x 16. A stage stays
+    inside one line, so a geometry whose bs is no multiple of the 128-byte
+    stages (N = 64) takes the one 64 x 16 tile with 64-byte stages at every
+    B. The grid is cut as in ``rotate_plan``."""
     if B < 1:
         raise ValueError(f"a launch needs at least one gate, got {B}")
     if geom.R != decomp_length * geom.C or geom.bs % 64 or geom.N % geom.bs:
         raise ValueError(f"blind_rotate_sel.cu takes bs a multiple of 64: {geom}")
-    poly_groups(geom)
+    groups = poly_groups(geom)
     if B * geom.C * geom.N >= 2**31:
         raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
     small, mid = 0, 1
@@ -342,11 +357,15 @@ def sel_plan(B: int, geom: FBlockGeometry, decomp_length: int, sm_count: int) ->
         config = small
     else:
         config = mid
-        for wide in (4, 3, 2):
-            m_tiles, n_tiles = _tile_counts(SEL_CONFIGS[wide], B, geom)
-            if 4 * m_tiles * n_tiles >= 3 * sm_count:
-                config = wide
-                break
+        if all(nl == MAX_LIMBS for _, nl in groups):
+            if B > SEL_CONFIGS[SEL_WGMMA_CONFIG].bm:
+                config = SEL_WGMMA_CONFIG
+        else:
+            for wide in (4, 3, 2):
+                m_tiles, n_tiles = _tile_counts(SEL_CONFIGS[wide], B, geom)
+                if 4 * m_tiles * n_tiles >= 3 * sm_count:
+                    config = wide
+                    break
     return _plan(config, SEL_CONFIGS[config], B, geom, sm_count)
 
 

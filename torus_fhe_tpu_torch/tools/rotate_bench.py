@@ -71,6 +71,7 @@ SHAPES = {
     "mk2_stage_256": (lambda: _mk("mk_2party_3gen", 1), 256, "acc"),   # one party's 520 steps
     "mk2_stage_64": (lambda: _mk("mk_2party_3gen", 1), 64, "acc"),
     "mk8_256": (lambda: _mk("mk_8party_3gen", 8), 256, "stepvec", "compact"),
+    "mk8_1024": (lambda: _mk("mk_8party_3gen", 8), 1024, "stepvec", "compact"),
     "mk4_256": (lambda: _mk("mk_4party_3gen", 4), 256, "stepvec", "compact"),
     "mk2_1024_compact": (lambda: _mk("mk_2party_3gen", 2), 1024, "stepvec", "compact"),
     "mk8_stage_64": (lambda: _mk("mk_8party_3gen", 1), 64, "acc", "compact"),  # 540 steps
