@@ -234,7 +234,7 @@ def test_sel_launches_per_config_start_empty_and_the_cpu_adds_none(compact):
     assert cuda_rotate.blind_rotate_sel_cuda.by_config == counts
     p = P.mktfhe_parameters_8party_3gen()
     plan = cuda_rotate.sel_plan(256, keys3gen.mk_fb_geometry(p, 8), 4, 132)
-    assert plan.config == cuda_rotate.SEL_WGMMA_CONFIG == 6
+    assert plan.config == cuda_rotate.SEL_WGMMA_CONFIG == 3
     assert cuda_rotate.SEL_CONFIGS[plan.config] == plan.tile and plan.tile.wgmma
 
 

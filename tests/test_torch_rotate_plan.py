@@ -123,7 +123,7 @@ def test_sel_plan_takes_what_the_expanded_plan_takes():
     for name in ("tfhe_128_tpu_fast", "tfhe_128_tpu"):
         p = P.PARAMETER_REGISTRY[name]()
         plan = cuda_rotate.sel_plan(1024, bk_geometry(p), p.bs_decomp_length, 132)
-        assert plan.tile.bk == 128 and plan.tile.wq == 64
+        assert plan.tile.bk == 128 and (plan.tile.bm, plan.tile.wq) == (64, 16)
     for name in SEL_GEOMETRIES:
         geom, l, _, _ = SEL_GEOMETRIES[name]()
         assert cuda_rotate.sel_plan(5, geom, l, 132).tile.bk == min(128, geom.bs)
@@ -135,6 +135,47 @@ def test_sel_plan_takes_what_the_expanded_plan_takes():
     for B, g in ((4, geom._replace(N=32, bs=32, nb=1, D=2)), (0, geom)):
         with pytest.raises(ValueError):
             cuda_rotate.sel_plan(B, g, l, 132)
+
+
+def test_every_tile_is_reached():
+    """Each tile of both kernels is the plan's pick for some registry set,
+    with the key form the program builds for it (the expanded key at the
+    single-key sets; ``keys3gen.default_forms``' at the 3gen sets, at their
+    party count), at some B in 1..4,096 on the 132 SMs of an H100. The one
+    exception is each kernel's tile of 64-byte stages, which no registry set
+    needs: it is the only tile its plan takes, at every B, for a geometry
+    whose 128-byte stages do not divide (bs = 64 on the compact kernel, R*bs
+    an odd multiple of 64 on the expanded one). A tile that neither holds
+    for is code that no launch runs."""
+    from torus_fhe_tpu_torch.boot.bootstrap import bk_geometry
+    from torus_fhe_tpu_torch.core import params as P
+    from torus_fhe_tpu_torch.mk import keys3gen
+    rotate_plan, sel_plan = cuda_rotate.rotate_plan, cuda_rotate.sel_plan
+    reached = {rotate_plan: set(), sel_plan: set()}
+    for make in P.PARAMETER_REGISTRY.values():
+        p = make()
+        if type(p) is P.SchemeParams:
+            plan, geom = rotate_plan, bk_geometry(p)
+            l, lb = p.bs_decomp_length, p.bs_log2_base
+        elif isinstance(p, P.SchemeParams3Gen) and keys3gen.mk_fb_supported(p):
+            compact = keys3gen.default_forms(p, p.max_parties) == ("fbstream",)
+            plan = sel_plan if compact else rotate_plan
+            geom = keys3gen.mk_fb_geometry(p, p.max_parties)
+            l, lb = p.gsw_decomp_length, p.gsw_log2_base
+        else:  # CCS, KMS and the wide-digit 3gen sets launch neither kernel
+            continue
+        if cuda_rotate.takes_kernel_route(geom, lb):
+            reached[plan] |= {plan(B, geom, l, 132).config for B in range(1, 4097)}
+    assert reached[rotate_plan] and reached[sel_plan]
+    for plan, name, config in ((rotate_plan, "k2_l1_N64", cuda_rotate.NARROW_CONFIG),
+                               (sel_plan, "k2_rounded_N64", cuda_rotate.SEL_NARROW_CONFIG)):
+        geom, l, _, _ = SEL_GEOMETRIES[name]()
+        assert (geom.R * geom.bs % 128 == 64) if plan is rotate_plan else geom.bs == 64
+        assert {plan(B, geom, l, 132).config for B in range(1, 4097)} == {config}
+        assert config not in reached[plan]
+        reached[plan].add(config)
+    assert reached[rotate_plan] == set(range(len(cuda_rotate.ROTATE_CONFIGS)))
+    assert reached[sel_plan] == set(range(len(cuda_rotate.SEL_CONFIGS)))
 
 
 def test_kernel_chunk_at_the_16_party_kms_geometry():

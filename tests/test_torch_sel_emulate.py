@@ -32,10 +32,10 @@ SEL_CASES = {(3, 132): (16, 16), (16, 132): (16, 16), (20, 132): (64, 16), (64, 
 
 
 # every case at the 3gen N=256 twin and at N=64 (64-byte stages); the split
-# tile, a ragged middle one and the widest at the N=512 and the 11-column twins
-# (the mma.sync tiles 64 x 32, 64 x 64 and 128 x 64 there: a polynomial of
-# three limb columns); the wgmma tile at the 8-party chain's full width, with
-# a ragged last gate tile
+# tiles at the N=512 and the 11-column twins (a polynomial of three limb
+# columns there, so 64 x 16 above 16 gates, with ragged last tiles at 70 and
+# 130 gates); the wgmma tile at the 8-party chain's full width, with a ragged
+# last gate tile
 @pytest.mark.parametrize("name, B, sms", [
     (name, B, sms) for name in ("multikey_N256", "k2_rounded_N64") for B, sms in SEL_CASES] + [
     (name, B, sms) for name in ("multikey_N512", "k2_rounded_N256")
@@ -62,14 +62,11 @@ def test_sel_kernel_emulation_equals_plain_version(name, B, sms):
         if name == "multikey_N256":
             assert (plan.tile.bm, plan.tile.wq) == SEL_CASES[B, sms]
     # the wgmma tile above one 64-gate tile where every polynomial has four
-    # limb columns; else the mma.sync tiles, 64 x 32 and wider where they
-    # fill three quarters of the SMs
+    # limb columns; else 64 x 16 above 16 gates
     four = all(nl == 4 for _, nl in cuda_rotate.poly_groups(geom))
     assert plan.tile.wgmma == (four and geom.bs % 128 == 0 and B > 64)
     if not four and geom.bs % 128 == 0 and B > 16:
-        wide = plan.tile.wq > 16
-        assert wide == (4 * -(-B // plan.tile.bm) * geom.nb * geom.C * geom.bs //
-                        plan.tile.wq >= 3 * sms)
+        assert (plan.tile.bm, plan.tile.wq) == (64, 16)
     assert plan.tile.wgmma == (plan.config == cuda_rotate.SEL_WGMMA_CONFIG)
     emulate = emulate_sel_wgmma_kernel if plan.tile.wgmma else emulate_sel_kernel
     got = emulate(acc, key, bara, *args, plan)

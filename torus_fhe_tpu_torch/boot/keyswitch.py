@@ -64,19 +64,25 @@ def keyswitch_keygen(generator: torch.Generator, alpha: float, params: Keyswitch
     return KeyswitchKey(pad_table(mat).to(device), n_in, n_out)
 
 
+def digit_onehot(a: torch.Tensor, decomp_length: int, log2_base: int) -> torch.Tensor:
+    """The one-hot int8 digit matrix of extracted masks ``a`` (..., n_in):
+    (rows, n_in * l * (base-1)), one column a (coefficient, digit, value
+    h = 1..base-1), the rows of a keyswitch table in the order they stand."""
+    base = 1 << log2_base
+    aibar = a + (1 << (32 - (1 + log2_base * decomp_length)))  # precision offset, wraps
+    shifts = 32 - torch.arange(1, decomp_length + 1, dtype=torch.int32,
+                               device=a.device) * log2_base
+    digits = (aibar[..., None] >> shifts) & (base - 1)  # (..., n_in, l)
+    h = torch.arange(1, base, dtype=torch.int32, device=a.device)
+    return (digits[..., None] == h).to(torch.int8).reshape(
+        -1, a.shape[-1] * decomp_length * (base - 1))
+
+
 @spanned("fhe.keyswitch")
 def keyswitch(ks: KeyswitchKey, params: KeyswitchParams, sample: LweSample) -> LweSample:
     """Batched keyswitch. sample.a: (..., n_in) over the extracted key."""
-    l = params.decomp_length
-    lb = params.log2_base
-    base = 1 << lb
     lead = tuple(sample.b.shape)
-    dev = sample.a.device
-    aibar = sample.a + (1 << (32 - (1 + lb * l)))  # precision offset, wraps
-    shifts = 32 - torch.arange(1, l + 1, dtype=torch.int32, device=dev) * lb
-    digits = (aibar[..., None] >> shifts) & (base - 1)  # (..., n_in, l)
-    h = torch.arange(1, base, dtype=torch.int32, device=dev)
-    onehot = (digits[..., None] == h).to(torch.int8).reshape(-1, ks.n_in * l * (base - 1))
+    onehot = digit_onehot(sample.a, params.decomp_length, params.log2_base)
     deltas = poly.int8_matmul(onehot, ks.mat)[:, :(ks.n_out + 1) * 4]
     deltas = poly.limb_combine(deltas.reshape(lead + (ks.n_out + 1, 4)), 32)
     return LweSample(-deltas[..., :ks.n_out], sample.b - deltas[..., ks.n_out])

@@ -28,12 +28,13 @@
 // parties: 0.17 ms), and digit rows that each column tile draws from L2
 // (64 MB a step at 8 parties, B = 256: 9.3 us at 6.9 TB/s, under the 17.4 us
 // of the MMAs). Measured on an NVIDIA H100 80GB HBM3 at 700.00 W, 8 parties,
-// B = 256: the mma.sync tile T3 257 ms (bound 75.0 ms; the dp4a kernel this
-// replaced took 1588 ms), held there by mma.sync's issue rate (about 3 clocks
-// an MMA) and a block-wide barrier every 128-byte stage; 53 ms at B = 1.
-// The wgmma tile (rotate_sel_wgmma.cuh) takes both away: 146 ms at B = 256. A stage of it reads about as many bytes of shared memory as
-// the tensor cores can multiply in the same time, which is what bounds it
-// next.
+// B = 256: an mma.sync tile of 64 x 64 (since removed) 257 ms (bound 75.0
+// ms; the dp4a kernel this replaced took 1588 ms), held there by mma.sync's
+// issue rate (about 3 clocks an MMA) and a block-wide barrier every 128-byte
+// stage; 53 ms at B = 1. The wgmma tile (rotate_sel_wgmma.cuh) takes both
+// away: 146 ms at B = 256. A stage of it reads about as many bytes of shared
+// memory as the tensor cores can multiply in the same time, which is what
+// bounds it next.
 //
 // What the design does (the body of the mma.sync tiles is rotate_gemm.cuh,
 // shared with blind_rotate.cu; this file names the tiles):
@@ -59,14 +60,12 @@
 //     four shifted copies of every line kept in global memory, as fast, at
 //     four times the key.)
 //   * The mma.sync tiles (mma.sync.m16n8k32 s8, a cp.async ring, the key as
-//     the MMA's B operand) are wide in coefficients, since with the key
-//     traffic gone each column tile reads every digit row once: 64 gates x
-//     64 coefficients, 128 x 64 above, 64 x 32 below (above 64 gates these
-//     serve geometries with fewer limb columns a polynomial, the single-key
-//     sets' compact form; the 3gen sets take the wgmma tile). Small batches
-//     leave few tiles of few warps, so there the block splits the reduction:
-//     64 x 16 with four groups of four warps up to 64 gates, 16 x 16 with
-//     eight single warps for B <= 16, each group through a ring of its own. A
+//     the MMA's B operand) serve the batches of few tiles of few warps, so
+//     the block splits the reduction: 16 x 16 with eight single warps for B
+//     <= 16, 64 x 16 with four groups of four warps above, each group
+//     through a ring of its own. 64 x 16 also takes every batch of a
+//     geometry with fewer than four limb columns a polynomial (the
+//     single-key sets' compact form, which no keygen of the port builds). A
 //     stage must stay inside one line, so BK divides bs: N = 64 takes one 64
 //     x 16 tile with 64-byte stages.
 //   * Above one 64-gate tile, where every polynomial has four limb columns
@@ -86,11 +85,10 @@
 // ncols, R, 2N) int8; dig is B*R*N bytes of scratch. config picks the tile:
 //   0: 16 gates x 16 coefficients, eight warps splitting the reduction;
 //   1: 64 x 16, four groups of four warps splitting it;
-//   2: 64 x 32;  3: 64 x 64;  4: 128 x 64;
-//   5: 64 x 16 with 64-byte stages, for bs = 64;
-//   6: the wgmma tile of rotate_sel_wgmma.cuh, 64 x 64, two consumer and one
+//   2: 64 x 16 with 64-byte stages, for bs = 64;
+//   3: the wgmma tile of rotate_sel_wgmma.cuh, 64 x 64, two consumer and one
 //      producer warpgroup, every polynomial of four limb columns.
-// All but 5 take 128-byte stages, which bs must be a multiple of. blocks is the
+// All but 2 take 128-byte stages, which bs must be a multiple of. blocks is the
 // grid asked for, which is cut to what is co-resident (at most the tile's
 // RESIDENT blocks per SM) and reported in *grid_used. The limb columns of one
 // polynomial must be consecutive, at most four. Returns the CUDA error of the
@@ -102,7 +100,7 @@ extern "C" int blind_rotate_sel_launch(void* out, const void* acc_in, const void
                                        int ncols, const int* col_poly, const int* col_shift,
                                        void* stream, int* grid_used) {
   if (blocks < 1 || bs % 64) return (int)cudaErrorInvalidValue;
-  if (config < 0 || config > 6 || (config != 5 && bs % 128)) return (int)cudaErrorInvalidValue;
+  if (config < 0 || config > 3 || (config != 2 && bs % 128)) return (int)cudaErrorInvalidValue;
   Geom g;
   if (!fill_geom(g, B, steps, N, bs, C, l, lb, offset, mu, ncols, col_poly, col_shift))
     return (int)cudaErrorInvalidValue;
@@ -116,19 +114,13 @@ extern "C" int blind_rotate_sel_launch(void* out, const void* acc_in, const void
   // Tile<COMPACT, WARPS_M, WARPS_N, WM, WNQ, STAGES, RESIDENT, BK[, KSPLIT]>
   using T0 = Tile<true, 1, 1, 1, 2, 4, 1, 128, 8>;
   using T1 = Tile<true, 4, 1, 1, 2, 4, 1, 128, 4>;
-  using T2 = Tile<true, 2, 2, 2, 2, 4, 3, 128>;
-  using T3 = Tile<true, 2, 4, 2, 2, 4, 1, 128>;
-  using T4 = Tile<true, 2, 4, 4, 2, 4, 1, 128>;
-  using T5 = Tile<true, 4, 1, 1, 2, 4, 3, 64>;
-  using T6 = sw::WgTile<true, 8, 4, 1>;  // WgTile<COMPACT, STAGES, NPROD, LAG>
+  using T2 = Tile<true, 4, 1, 1, 2, 4, 3, 64>;
+  using T3 = sw::WgTile<true, 8, 4, 1>;  // WgTile<COMPACT, STAGES, NPROD, LAG>
   switch (config) {
     case 0: return (int)launch<T0>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     case 1: return (int)launch<T1>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     case 2: return (int)launch<T2>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
-    case 3: return (int)launch<T3>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
-    case 4: return (int)launch<T4>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
-    case 5: return (int)launch<T5>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
-    case 6: return (int)sw::launch<T6>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 3: return (int)sw::launch<T3>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..boot.bootstrap import get_rotate_backend
+from ..boot.keyswitch import digit_onehot
 from ..core.params import TGswParams
 from ..core.torus import decode_message
 from ..lwe import LweSample
@@ -102,13 +103,7 @@ def _fast_rotate_extract(ck: MKCloudKey, mu: int, bara: torch.Tensor, barb: torc
 def ks_onehot(ck: MKCloudKey, a: torch.Tensor) -> torch.Tensor:
     """The keyswitch's one-hot int8 digit matrix of extracted masks a
     (..., N): (rows, K), K the table's row count."""
-    l, lb = ck.params.ks_decomp_length, ck.params.ks_log2_base
-    base = 1 << lb
-    aibar = a + (1 << (32 - (1 + lb * l)))  # precision offset, wraps
-    shifts = 32 - torch.arange(1, l + 1, dtype=torch.int32, device=a.device) * lb
-    digits = (aibar[..., None] >> shifts) & (base - 1)  # (..., N, l)
-    h = torch.arange(1, base, dtype=torch.int32, device=a.device)
-    return (digits[..., None] == h).to(torch.int8).reshape(-1, ck.ks_mat.shape[0])
+    return digit_onehot(a, ck.params.ks_decomp_length, ck.params.ks_log2_base)
 
 
 @spanned("fhe.keyswitch")

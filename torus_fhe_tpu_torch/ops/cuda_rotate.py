@@ -16,8 +16,9 @@ kernel), in the same two modes. It is the same chain of tensor-core GEMMs
 (both sources include csrc/rotate_gemm.cuh) and expands nothing: a GEMM
 tile's key operand is a window of one reversed line, BK + WQ bytes a limb,
 from which the SM makes the MMA fragments itself. The int8 tensor-core rate
-bounds it; ``sel_plan`` is its launch plan, with tiles wide in coefficients,
-because each column tile reads every digit row from L2 once.
+bounds it; ``sel_plan`` is its launch plan: at the 3gen sets' wide batches a
+tile wide in coefficients, because each column tile reads every digit row
+from L2 once, and below them tiles whose warps split the reduction.
 ``rotate`` and ``rotate_streamed`` are what the bootstraps call. They pick
 the route from the parameters, before anything is launched
 (``takes_kernel_route``): a 32-bit geometry with digits of at most a byte
@@ -43,7 +44,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -132,18 +133,15 @@ NARROW_CONFIG, WGMMA_CONFIG = 3, 4
 WGMMA_CLUSTER = 2  # blocks of a cluster: gate tiles that share a key box
 # indexed by the ``config`` argument of blind_rotate_sel_launch: the tiles of
 # the compact kernel, wide in coefficients (the key side of a stage is a
-# window of bk + wq bytes, so what a tile draws from L2 is its digit rows),
-# the one with 64-byte stages for bs = 64 (a stage stays inside one line),
-# and the wgmma tile above 64 gates (two consumer warpgroups and four
-# producer warps, 8 stages)
+# window of bk + wq bytes, so what a tile draws from L2 is its digit rows): two
+# that split the reduction, the one with 64-byte stages for bs = 64 (a stage
+# stays inside one line), and the wgmma tile above 64 gates (two consumer
+# warpgroups and four producer warps, 8 stages)
 SEL_CONFIGS = (TileConfig(16, 16, 4, 256, 1, 128, 8, True),
                TileConfig(64, 16, 4, 512, 1, 128, 4, True),
-               TileConfig(64, 32, 4, 128, 3, 128, 1, True),
-               TileConfig(64, 64, 4, 256, 1, 128, 1, True),
-               TileConfig(128, 64, 4, 256, 1, 128, 1, True),
                TileConfig(64, 16, 4, 128, 3, 64, 1, True),
                TileConfig(64, 64, 8, 384, 1, 128, 1, True, True))
-SEL_NARROW_CONFIG, SEL_WGMMA_CONFIG = 5, 6
+SEL_NARROW_CONFIG, SEL_WGMMA_CONFIG = 2, 3
 # peak rates of an H100 SXM that the bounds are taken against: dense int8
 # tensor-core operations, float64 outside the tensor cores (NVIDIA's data
 # sheet), and device-memory bytes
@@ -260,6 +258,27 @@ def poly_groups(geom: FBlockGeometry) -> list:
     return [tuple(g) for g in groups]
 
 
+def _check_geometry(geom: FBlockGeometry, decomp_length: int) -> None:
+    if geom.R != decomp_length * geom.C or geom.bs % 16 or len(geom.cols) > MAX_COLS:
+        raise ValueError(f"unsupported geometry {geom} for l={decomp_length}")
+
+
+def _check_plan(B: int, geom: FBlockGeometry, decomp_length: int, source: str,
+                bs_multiple: int, rbs_multiple: int) -> list:
+    """The checks both plans share: ``source``'s stages take bs a multiple
+    of ``bs_multiple`` and R*bs of ``rbs_multiple``. Returns ``poly_groups``."""
+    if B < 1:
+        raise ValueError(f"a launch needs at least one gate, got {B}")
+    _check_geometry(geom, decomp_length)
+    if geom.bs % bs_multiple or geom.R * geom.bs % rbs_multiple or geom.N % geom.bs:
+        rows = f" and R*bs a multiple of {rbs_multiple}" if rbs_multiple > bs_multiple else ""
+        raise ValueError(f"{source} takes bs a multiple of {bs_multiple}{rows}: {geom}")
+    groups = poly_groups(geom)
+    if B * geom.C * geom.N >= 2**31:
+        raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
+    return groups
+
+
 def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
                 sm_count: int) -> RotatePlan:
     """How blind_rotate.cu runs ``B`` gates on a card of ``sm_count`` SMs.
@@ -270,24 +289,18 @@ def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
     and the wgmma tile (``WGMMA_CONFIG``, 128 x 64) instead of 128 x 32
     where its tiles fill every SM at least once (wide batches: 1.46-1.71x
     faster there on an H100). A geometry whose R*bs is no multiple of the
-    128-byte stages takes the one 64 x 16 tile with 64-byte stages at every B. The grid: every tile a block, up to what is resident at once (the
+    128-byte stages takes the one 64 x 16 tile with 64-byte stages at every
+    B.
+
+    The grid: every tile a block, up to what is resident at once (the
     tile's ``resident`` per SM, within shared memory, threads and the block
     limit): blocks that share an SM share its rounds, so more of them only
     hide latency; the wgmma tile's grid is whole clusters, a pair of gate
     tiles of one key box each. A ragged last round is left ragged: tiles are
     dealt round-robin, gate tiles of one key box side by side."""
-    if B < 1:
-        raise ValueError(f"a launch needs at least one gate, got {B}")
-    rbs = geom.R * geom.bs
-    if geom.R != decomp_length * geom.C or geom.bs % 32 or rbs % 64 or geom.N % geom.bs:
-        raise ValueError(f"blind_rotate.cu takes bs a multiple of 32 and R*bs a multiple of "
-                         f"64: {geom}")
-    poly_groups(geom)
-    if B * geom.C * geom.N >= 2**31:
-        raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
-
+    _check_plan(B, geom, decomp_length, "blind_rotate.cu", 32, 64)
     small, mid, big = 0, 1, 2
-    if rbs % ROTATE_CONFIGS[small].bk:
+    if geom.R * geom.bs % ROTATE_CONFIGS[small].bk:
         config = NARROW_CONFIG
     elif B <= ROTATE_CONFIGS[small].bm:
         config = small
@@ -306,10 +319,6 @@ def _tile_counts(cfg: TileConfig, B: int, geom: FBlockGeometry) -> tuple:
     return -(-B // cfg.bm), geom.nb * geom.C * (geom.bs // cfg.wq)
 
 
-def _fill(tiles: int, sm_count: int) -> float:
-    return tiles / (-(-tiles // sm_count) * sm_count) if tiles > sm_count else 1.0
-
-
 def _plan(config: int, cfg: TileConfig, B: int, geom: FBlockGeometry,
           sm_count: int) -> RotatePlan:
     m_tiles, n_tiles = _tile_counts(cfg, B, geom)
@@ -320,89 +329,79 @@ def _plan(config: int, cfg: TileConfig, B: int, geom: FBlockGeometry,
     if cfg.wgmma:  # whole clusters, a pair of gate tiles each
         pairs = -(-m_tiles // WGMMA_CLUSTER) * n_tiles
         blocks = WGMMA_CLUSTER * min(pairs, max(1, per_sm * sm_count // WGMMA_CLUSTER))
+    fill = tiles / (-(-tiles // sm_count) * sm_count) if tiles > sm_count else 1.0
     return RotatePlan(config, cfg, m_tiles, m_tiles * cfg.bm, n_tiles, tiles, blocks,
-                      tiles / sm_count, _fill(tiles, sm_count), cfg.smem_bytes,
-                      B * geom.R * geom.N)
+                      tiles / sm_count, fill, cfg.smem_bytes, B * geom.R * geom.N)
 
 
 def sel_plan(B: int, geom: FBlockGeometry, decomp_length: int, sm_count: int) -> RotatePlan:
     """How blind_rotate_sel.cu runs ``B`` gates on a card of ``sm_count`` SMs.
 
     The key side of a tile is a few hundred bytes a stage, so what a tile
-    draws from L2 is its digit rows, once per column tile: the widest tile
-    in coefficients wins where it fills the card. Up to 16 gates: 16 x 16,
-    eight warps splitting the reduction (one gate's columns spread over every
-    SM). Above, where every polynomial has four limb columns (the 3gen
-    sets): the wgmma tile (``SEL_WGMMA_CONFIG``, 64 x 64) from two of its
-    gate tiles up, since at 4 and 8 parties it beats the mma.sync tiles at
-    every batch from 96 gates (at half the SMs: 138 against 224 ms at 8
-    parties, B=96, on an H100), and 64 x 16 with four groups of four warps
-    splitting the reduction below (111 against 138 ms at B=64). Otherwise
-    the first of 128 gates x 64 coefficients, 64 x 64, 64 x 32 that gives at
-    least three quarters of the SMs a tile, else 64 x 16. A stage stays
-    inside one line, so a geometry whose bs is no multiple of the 128-byte
-    stages (N = 64) takes the one 64 x 16 tile with 64-byte stages at every
-    B. The grid is cut as in ``rotate_plan``."""
-    if B < 1:
-        raise ValueError(f"a launch needs at least one gate, got {B}")
-    if geom.R != decomp_length * geom.C or geom.bs % 64 or geom.N % geom.bs:
-        raise ValueError(f"blind_rotate_sel.cu takes bs a multiple of 64: {geom}")
-    groups = poly_groups(geom)
-    if B * geom.C * geom.N >= 2**31:
-        raise ValueError(f"{B} gates of {geom.C}x{geom.N} words overflow the kernel's int index")
+    draws from L2 is its digit rows, once per column tile. Up to 16 gates:
+    16 x 16, eight warps splitting the reduction (one gate's columns spread
+    over every SM). Above, where every polynomial has four limb columns (the
+    3gen sets): the wgmma tile (``SEL_WGMMA_CONFIG``, 64 x 64) from two of
+    its gate tiles up, since at 4 and 8 parties it beats the mma.sync tiles
+    at every batch from 96 gates (at half the SMs: 138 against 224 ms at 8
+    parties, B=96, on an H100). Otherwise 64 x 16 with four groups of four
+    warps splitting the reduction (111 against 138 ms at B=64). A stage
+    stays inside one line, so a geometry whose bs is no multiple of the
+    128-byte stages (N = 64) takes the one 64 x 16 tile with 64-byte stages
+    at every B. The grid is cut as in ``rotate_plan``."""
+    groups = _check_plan(B, geom, decomp_length, "blind_rotate_sel.cu", 64, 64)
     small, mid = 0, 1
     if geom.bs % SEL_CONFIGS[small].bk:
         config = SEL_NARROW_CONFIG
     elif B <= SEL_CONFIGS[small].bm:
         config = small
+    elif all(nl == MAX_LIMBS for _, nl in groups) and B > SEL_CONFIGS[SEL_WGMMA_CONFIG].bm:
+        config = SEL_WGMMA_CONFIG
     else:
         config = mid
-        if all(nl == MAX_LIMBS for _, nl in groups):
-            if B > SEL_CONFIGS[SEL_WGMMA_CONFIG].bm:
-                config = SEL_WGMMA_CONFIG
-        else:
-            for wide in (4, 3, 2):
-                m_tiles, n_tiles = _tile_counts(SEL_CONFIGS[wide], B, geom)
-                if 4 * m_tiles * n_tiles >= 3 * sm_count:
-                    config = wide
-                    break
     return _plan(config, SEL_CONFIGS[config], B, geom, sm_count)
 
 
-def rotate_bound_ms(B: int, geom: FBlockGeometry, key_bytes: int) -> tuple:
+def rotate_bound_ms(B: int, geom: FBlockGeometry, key_bytes: int,
+                    limb_blocks: int = 1) -> tuple:
     """(bound ms, what bounds it) of one blind rotate from its shapes: the
-    int8 multiply-adds of n steps, two operations each, over the card's int8
-    peak, against the bytes read once (key, bara, an accumulator in) and
-    written once (the accumulator out) over the device-memory rate."""
-    macs = geom.n * B * (geom.R * geom.N) * (len(geom.cols) * geom.N)
+    int8 multiply-adds of n steps, two operations each, once for each of a
+    digit's ``limb_blocks`` int8 limb blocks (one for digits of at most a
+    byte), over the card's int8 peak, against the bytes read once (key,
+    bara, an accumulator in) and written once (the accumulator out) over the
+    device-memory rate."""
+    macs = limb_blocks * geom.n * B * (geom.R * geom.N) * (len(geom.cols) * geom.N)
     moved = key_bytes + B * geom.n * 4 + 2 * B * geom.C * geom.N * 4
     return bound_ms(2 * macs, INT8_OPS_PER_S, moved)
 
 
-def _check_chain(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
-                 log2_base: int, stepvec, key_shapes: tuple, what: str) -> None:
-    """The checks both kernels share; ``key`` must be int8 (steps,) + one of
-    ``key_shapes``."""
+def _check_chain(kernel: _Kernel, acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
+                 log2_base: int, stepvec) -> bool:
+    """The checks of ``kernel`` and its plain version; ``key`` must be int8
+    (steps,) + one of its two layouts. Returns whether it is the kernel
+    layout."""
     if geom.bits != 32:
         raise ValueError(f"the blind rotate implements the 32-bit torus, not {geom.bits}")
     if not 1 <= log2_base <= 8 or decomp_length * log2_base > 32:
         raise ValueError(f"digits must fit a byte: l={decomp_length}, log2_base={log2_base}")
-    if geom.R != decomp_length * geom.C or geom.bs % 16 or len(geom.cols) > MAX_COLS:
-        raise ValueError(f"unsupported geometry {geom} for l={decomp_length}")
+    _check_geometry(geom, decomp_length)
     # every output sums R*N products of |digit| <= 2^(lb-1) and |limb| <= 128
     bound = geom.R * geom.N * (1 << (log2_base - 1)) * 128
     if bound >= 2**31:
         raise ValueError(f"R*N*2^(lb-1)*128 = {bound} is not below 2^31: the int32 "
                          f"sums of {geom} with log2_base={log2_base} are not exact")
-    _check_tensors(acc_a, key, bara, geom, stepvec, key_shapes, what, torch.int32)
+    return _check_tensors(acc_a, key, bara, geom, stepvec,
+                          (kernel.plain_layout(geom), kernel.kernel_layout(geom)),
+                          kernel.key_name, torch.int32) == 1
 
 
 def _check_tensors(acc_a, key, bara, geom: FBlockGeometry, stepvec, key_shapes: tuple,
-                   what: str, dtype: torch.dtype) -> None:
+                   what: str, dtype: torch.dtype) -> int:
     """The checks every route shares: ``key`` int8 (steps,) + one of
     ``key_shapes``, bara int32 (B, steps), an accumulator of ``dtype`` or a
-    stepvec, all on one device."""
-    if key.dtype != torch.int8 or tuple(key.shape[1:]) not in key_shapes:
+    stepvec, all on one device. Returns the index of the key's shape."""
+    step = tuple(key.shape[1:])
+    if key.dtype != torch.int8 or step not in key_shapes:
         shapes = " or ".join(f"(steps, {', '.join(map(str, s))})" for s in key_shapes)
         raise ValueError(f"{what} must be int8 {shapes}, got {key.dtype} {tuple(key.shape)}")
     if bara.dtype != torch.int32 or bara.dim() != 2 or bara.shape[1] != key.shape[0]:
@@ -422,6 +421,7 @@ def _check_tensors(acc_a, key, bara, geom: FBlockGeometry, stepvec, key_shapes: 
         tensors = (barb, key, bara)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all tensors must be on one device")
+    return key_shapes.index(step)
 
 
 def check_args(acc_a, fb, bara, geom: FBlockGeometry, decomp_length: int,
@@ -430,9 +430,7 @@ def check_args(acc_a, fb, bara, geom: FBlockGeometry, decomp_length: int,
     not take: types, shapes, a torus other than 32 bits, digits wider than a
     byte, sums that could leave int32, mixed devices. ``fb`` is the expanded
     key in the ``build_fblocks`` layout or in the kernel layout."""
-    _check_chain(acc_a, fb, bara, geom, decomp_length, log2_base, stepvec,
-                 ((geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs),
-                  fblock.kernel_layout_shape(geom)), "fb")
+    _check_chain(_EXPANDED, acc_a, fb, bara, geom, decomp_length, log2_base, stepvec)
 
 
 def check_sel_args(acc_a, sel, bara, geom: FBlockGeometry, decomp_length: int,
@@ -440,19 +438,7 @@ def check_sel_args(acc_a, sel, bara, geom: FBlockGeometry, decomp_length: int,
     """The same for blind_rotate_sel.cu and its plain version, whose key is
     the compact lines, int8: (steps, R, 2N, ncols) as ``build_sel`` lays
     them out, or the compact kernel layout (steps, ncols, R, 2N)."""
-    _check_chain(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec,
-                 ((geom.R, 2 * geom.N, len(geom.cols)),
-                  fblock.sel_kernel_layout_shape(geom)), "sel")
-
-
-def _launch_args(acc_a, key, bara, stepvec):
-    """Contiguous tensors of a launch (held by the caller until the launch)
-    and the init mode's mu."""
-    if stepvec is None:
-        acc_a, barb, mu = acc_a.contiguous(), None, 0
-    else:
-        mu, barb = int(stepvec[0]), stepvec[1].contiguous()
-    return key.contiguous(), bara.contiguous(), acc_a, barb, mu & 0xFFFFFFFF
+    _check_chain(_COMPACT, acc_a, sel, bara, geom, decomp_length, log2_base, stepvec)
 
 
 def _ptr(t):
@@ -471,7 +457,12 @@ def _launch(name: str, plan: RotatePlan, acc_a, key, bara, geom: FBlockGeometry,
     kernel's accumulator, and the digit scratch. Returns (out, grid used)."""
     B = bara.shape[0]
     out = torch.empty((B, geom.C, geom.N), dtype=torch.int32, device=key.device)
-    key, bara, acc_a, barb, mu = _launch_args(acc_a, key, bara, stepvec)
+    # contiguous tensors, held here until the launch, and the init mode's mu
+    key, bara = key.contiguous(), bara.contiguous()
+    if stepvec is None:
+        acc_a, barb, mu = acc_a.contiguous(), None, 0
+    else:
+        mu, barb = int(stepvec[0]) & 0xFFFFFFFF, stepvec[1].contiguous()
     grid = ctypes.c_int(0)
     events = None if launch_events is None else [torch.cuda.Event(enable_timing=True)
                                                  for _ in range(2)]
@@ -497,6 +488,42 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+class _Kernel(NamedTuple):
+    """What the two kernels differ in (``_blind_rotate``, ``_route``)."""
+
+    name: str                # the library: csrc/<name>.cu, whose launcher is <name>_launch
+    plan: Callable           # rotate_plan or sel_plan
+    key_name: str            # the key's name in the argument check's errors
+    plain_layout: Callable   # geom -> a step's shape in the plain version's layout
+    kernel_layout: Callable  # geom -> a step's shape in the kernel layout
+    layout_error: str        # the ValueError for a key on the card in the plain layout
+    plain: Callable          # the plain version, which reads both layouts
+    counters: Callable       # the public launcher, whose attributes count the launches
+
+
+def _blind_rotate(kernel: _Kernel, acc_a, key, bara, geom: FBlockGeometry,
+                  decomp_length: int, log2_base: int, offset: int, stepvec) -> torch.Tensor:
+    """One launch of ``kernel``: the checks, the plan, the launch and the
+    counters of ``kernel.counters``."""
+    kernel_layout = _check_chain(kernel, acc_a, key, bara, geom, decomp_length, log2_base,
+                                 stepvec)
+    fn = kernel.counters
+    if key.device.type != "cuda":
+        raise ValueError(f"{fn.__name__} takes CUDA tensors, got {key.device}")
+    if not kernel_layout:
+        raise ValueError(kernel.layout_error)
+    B = bara.shape[0]
+    if B == 0:
+        return torch.empty((0, geom.C, geom.N), dtype=torch.int32, device=key.device)
+    plan = kernel.plan(B, geom, decomp_length, _sm_count(key.device))
+    out, fn.grid = _launch(kernel.name, plan, acc_a, key, bara, geom, decomp_length, log2_base,
+                           offset, stepvec)
+    fn.launches += 1
+    fn.rows += B
+    fn.by_config[plan.config] = fn.by_config.get(plan.config, 0) + 1
+    return out
+
+
 def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
                       geom: FBlockGeometry, decomp_length: int, log2_base: int,
                       offset: int, stepvec=None) -> torch.Tensor:
@@ -514,30 +541,8 @@ def blind_rotate_cuda(acc_a, key: torch.Tensor, bara: torch.Tensor,
     ``blind_rotate_cuda.by_config`` the launches per tile config (a dict),
     ``blind_rotate_cuda.grid`` is the last launch's grid.
     """
-    check_args(acc_a, key, bara, geom, decomp_length, log2_base, stepvec)
-    if key.device.type != "cuda":
-        raise ValueError(f"blind_rotate_cuda takes CUDA tensors, got {key.device}")
-    if key.dim() != 4:
-        raise ValueError("blind_rotate_cuda reads the kernel layout (n, D, ncols*bs, R*bs): "
-                         "build the key on the card (fblock.build_rotate_key) or convert it "
-                         "once (fblock.to_kernel_layout)")
-    B = bara.shape[0]
-    if B == 0:
-        return torch.empty((0, geom.C, geom.N), dtype=torch.int32, device=key.device)
-    plan = rotate_plan(B, geom, decomp_length, _sm_count(key.device))
-    out, blind_rotate_cuda.grid = _launch("blind_rotate", plan, acc_a, key, bara, geom,
-                                          decomp_length, log2_base, offset, stepvec)
-    blind_rotate_cuda.launches += 1
-    blind_rotate_cuda.rows += B
-    by_config = blind_rotate_cuda.by_config
-    by_config[plan.config] = by_config.get(plan.config, 0) + 1
-    return out
-
-
-blind_rotate_cuda.launches = 0
-blind_rotate_cuda.rows = 0
-blind_rotate_cuda.by_config = {}
-blind_rotate_cuda.grid = 0
+    return _blind_rotate(_EXPANDED, acc_a, key, bara, geom, decomp_length, log2_base, offset,
+                         stepvec)
 
 
 def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
@@ -558,30 +563,25 @@ def blind_rotate_sel_cuda(acc_a, sel: torch.Tensor, bara: torch.Tensor,
     ``blind_rotate_sel_cuda.by_config`` the launches per tile config (a dict),
     ``blind_rotate_sel_cuda.grid`` is the last launch's grid.
     """
-    check_sel_args(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec)
-    if sel.device.type != "cuda":
-        raise ValueError(f"blind_rotate_sel_cuda takes CUDA tensors, got {sel.device}")
-    if tuple(sel.shape[1:]) != fblock.sel_kernel_layout_shape(geom):
-        raise ValueError("blind_rotate_sel_cuda reads the compact kernel layout (steps, ncols, "
-                         "R, 2N): build the key on the card (fblock.build_sel_key) or convert "
-                         "it once (fblock.to_sel_kernel_layout)")
-    B = bara.shape[0]
-    if B == 0:
-        return torch.empty((0, geom.C, geom.N), dtype=torch.int32, device=sel.device)
-    plan = sel_plan(B, geom, decomp_length, _sm_count(sel.device))
-    out, blind_rotate_sel_cuda.grid = _launch("blind_rotate_sel", plan, acc_a, sel, bara, geom,
-                                              decomp_length, log2_base, offset, stepvec)
-    blind_rotate_sel_cuda.launches += 1
-    blind_rotate_sel_cuda.rows += B
-    by_config = blind_rotate_sel_cuda.by_config
-    by_config[plan.config] = by_config.get(plan.config, 0) + 1
-    return out
+    return _blind_rotate(_COMPACT, acc_a, sel, bara, geom, decomp_length, log2_base, offset,
+                         stepvec)
 
 
-blind_rotate_sel_cuda.launches = 0
-blind_rotate_sel_cuda.rows = 0
-blind_rotate_sel_cuda.by_config = {}
-blind_rotate_sel_cuda.grid = 0
+for _fn in (blind_rotate_cuda, blind_rotate_sel_cuda):
+    _fn.launches, _fn.rows, _fn.by_config, _fn.grid = 0, 0, {}, 0
+
+_EXPANDED = _Kernel(
+    "blind_rotate", rotate_plan, "fb", lambda g: (g.D * g.R * g.bs, len(g.cols) * g.bs),
+    fblock.kernel_layout_shape,
+    "blind_rotate_cuda reads the kernel layout (n, D, ncols*bs, R*bs): build the key on the "
+    "card (fblock.build_rotate_key) or convert it once (fblock.to_kernel_layout)",
+    fblock.blind_rotate_fblock, blind_rotate_cuda)
+_COMPACT = _Kernel(
+    "blind_rotate_sel", sel_plan, "sel", lambda g: (g.R, 2 * g.N, len(g.cols)),
+    fblock.sel_kernel_layout_shape,
+    "blind_rotate_sel_cuda reads the compact kernel layout (steps, ncols, R, 2N): build the key "
+    "on the card (fblock.build_sel_key) or convert it once (fblock.to_sel_kernel_layout)",
+    fblock.blind_rotate_streamed, blind_rotate_sel_cuda)
 
 
 def takes_kernel_route(geom: FBlockGeometry, log2_base: int) -> bool:
@@ -616,6 +616,23 @@ def check_wide_args(acc_a, key, bara, geom: FBlockGeometry, decomp_length: int,
     _check_tensors(acc_a, key, bara, geom, stepvec, key_shapes, "the key", dtype)
 
 
+def _route(kernel: _Kernel, launch: Callable, acc_a, key, bara, geom: FBlockGeometry,
+           decomp_length: int, log2_base: int, offset: int, stepvec) -> torch.Tensor:
+    """The body of ``rotate`` and ``rotate_streamed``. ``launch`` is the
+    module's launcher as the caller finds it, so that a patch takes effect."""
+    args = (geom, decomp_length, log2_base, offset)
+    if not takes_kernel_route(geom, log2_base):
+        check_wide_args(acc_a, key, bara, geom, decomp_length, log2_base, stepvec,
+                        (kernel.plain_layout(geom), kernel.kernel_layout(geom)))
+        return kernel.plain(acc_a, key, bara, *args, stepvec=stepvec)
+    if key.device.type == "cuda":
+        return launch(acc_a, key, bara, *args, stepvec)
+    _check_chain(kernel, acc_a, key, bara, geom, decomp_length, log2_base, stepvec)
+    if key.device.type == "cpu":
+        return kernel.plain(acc_a, key, bara, *args, stepvec=stepvec)
+    raise ValueError(f"no blind rotate for device {key.device}")
+
+
 @spanned("fhe.rotate")
 def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
            decomp_length: int, log2_base: int, offset: int,
@@ -627,20 +644,8 @@ def rotate(acc_a, fb: torch.Tensor, bara: torch.Tensor, geom: FBlockGeometry,
     tensors (either layout); the wide route (64 bits, or digits wider than a
     byte) is the torch-op scan ``fblock.blind_rotate_fblock`` on either
     device. Anything else raises."""
-    if not takes_kernel_route(geom, log2_base):
-        check_wide_args(acc_a, fb, bara, geom, decomp_length, log2_base, stepvec,
-                        ((geom.D * geom.R * geom.bs, len(geom.cols) * geom.bs),
-                         fblock.kernel_layout_shape(geom)))
-        return fblock.blind_rotate_fblock(acc_a, fb, bara, geom, decomp_length, log2_base,
-                                          offset, stepvec)
-    if fb.device.type == "cuda":
-        return blind_rotate_cuda(acc_a, fb, bara, geom, decomp_length, log2_base,
-                                 offset, stepvec)
-    check_args(acc_a, fb, bara, geom, decomp_length, log2_base, stepvec)
-    if fb.device.type == "cpu":
-        return fblock.blind_rotate_fblock(acc_a, fb, bara, geom, decomp_length,
-                                          log2_base, offset, stepvec)
-    raise ValueError(f"no blind rotate for device {fb.device}")
+    return _route(_EXPANDED, blind_rotate_cuda, acc_a, fb, bara, geom, decomp_length,
+                  log2_base, offset, stepvec)
 
 
 @spanned("fhe.rotate")
@@ -653,17 +658,5 @@ def rotate_streamed(acc_a, sel: torch.Tensor, bara: torch.Tensor, geom: FBlockGe
     tensors (either layout) on the kernel route; the same
     ``blind_rotate_streamed`` on either device on the wide route. Anything
     else raises."""
-    if not takes_kernel_route(geom, log2_base):
-        check_wide_args(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec,
-                        ((geom.R, 2 * geom.N, len(geom.cols)),
-                         fblock.sel_kernel_layout_shape(geom)))
-        return fblock.blind_rotate_streamed(acc_a, sel, bara, geom, decomp_length, log2_base,
-                                            offset, stepvec=stepvec)
-    if sel.device.type == "cuda":
-        return blind_rotate_sel_cuda(acc_a, sel, bara, geom, decomp_length, log2_base,
-                                     offset, stepvec)
-    check_sel_args(acc_a, sel, bara, geom, decomp_length, log2_base, stepvec)
-    if sel.device.type == "cpu":
-        return fblock.blind_rotate_streamed(acc_a, sel, bara, geom, decomp_length,
-                                            log2_base, offset, stepvec=stepvec)
-    raise ValueError(f"no blind rotate for device {sel.device}")
+    return _route(_COMPACT, blind_rotate_sel_cuda, acc_a, sel, bara, geom, decomp_length,
+                  log2_base, offset, stepvec)

@@ -363,9 +363,7 @@ def bound_3gen(ck, B: int) -> tuple:
     params, parties = ck.params, ck.parties
     geom = (keys3gen.mk_fb64_geometry if ck.exact else keys3gen.mk_fb_geometry)(params, parties)
     nl = digit_limbs(params.gsw_log2_base) if ck.exact else 1
-    macs = nl * geom.n * B * (geom.R * geom.N) * (len(geom.cols) * geom.N)
-    moved = key_bytes(ck) + B * geom.n * 4 + 2 * B * geom.C * geom.N * 4
-    return cuda_rotate.bound_ms(2 * macs, cuda_rotate.INT8_OPS_PER_S, moved)
+    return cuda_rotate.rotate_bound_ms(B, geom, key_bytes(ck), nl)
 
 
 def row(scheme: str, ck, sks, B: int, trials: int, seed: int, warmup: bool = True) -> dict:
