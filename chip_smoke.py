@@ -151,7 +151,9 @@ read just after:
   blind_rotate, 17 of them timed; bench.py's JSON line); B2, tools/profile's
   table at tfhe_128 (N=1024, l=3, no body drop: 8 limb columns) on a key of
   its own, freed after: the full key's kernel == its plain version on one
-  AND batch of B=1024, timed beside its bound, then the rows at B=1024 (92
+  AND batch of B=1024, timed beside its bound, the latency tile (B <= 3)
+  == its plain version on the same full key at B = 1 and 3 in both init
+  modes, B = 1 timed beside its bound, then the rows at B=1024 (92
   launches; the 8-bit adder's words decrypt-checked); B3 is N5's first
   trace;
 - the key forms and routes the user chooses (boot/bootstrap.py's
@@ -313,6 +315,9 @@ BENCH_LAUNCHES, BENCH_TIMED = 27, 17
 # 2 x (1 + 3), the adder 40 gates x (1 + 1) launches
 PROFILE_SET = ("tfhe_128", 1024, 3)
 PROFILE_LAUNCHES = 4 + 8 + 80
+# B2's batches of the latency tile on the full tfhe_128 key: one gate (a
+# circuit's launch) and 3
+LATENCY_CHECK = (1, 3)
 N6_KNN = ("mk_4party_3gen", 4, 5, 2, 8, 3)  # set, parties, train rows, test rows, width, k
 # P5: the mesh across processes on the one card: (backend, ranks, tasks) of
 # each group, spawned in turn; every rank runs on cuda:0, so the groups of
@@ -756,7 +761,7 @@ def smoke() -> int:
     b_launches += bench_phase("tfhe_128_tpu", sk3, ck3, t3_keygen)
     del sk3, ck3, c3x, c3y, t3
     torch.cuda.empty_cache()
-    n, b2_err = profile_table(dev)
+    n, b2_err, latency = profile_table(dev)
     b_launches += n
 
     # P4: the batch-sharded bootsAND over two mesh slots == the single-device one
@@ -864,7 +869,10 @@ def smoke() -> int:
          "ms": mkr["ms"]["blind_rotate_sel"],
          "plain_ms": mkr["plain_ms"]["blind_rotate_sel"],
          "bound_ms": mkr["bound_ms"]["blind_rotate_sel"][0],
-         "bound_by": mkr["bound_ms"]["blind_rotate_sel"][1], "library_ms": None}]}))
+         "bound_by": mkr["bound_ms"]["blind_rotate_sel"][1], "library_ms": None},
+        {"name": "blind_rotate", "tile": "latency", "route": "cuda",
+         "source": "torus_fhe_tpu_torch/csrc/rotate_latency.cuh",
+         "replaces": "torus_fhe_tpu/ops/pallas_rotate.py:264", **latency}]}))
     print(json.dumps({"routes": routes}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -905,8 +913,11 @@ def profile_table(dev) -> tuple:
     against its plain version on one mod-switched AND batch (word for word,
     timed, beside the bound from shapes), then the rows with the counts at
     0 before them and read after (exactly PROFILE_LAUNCHES launches of
-    blind_rotate; the adder's words decrypt-checked inside). Returns (the
-    rows' launches, the kernel's max |diff|)."""
+    blind_rotate; the adder's words decrypt-checked inside). Between the
+    two, the latency tile on the same key at LATENCY_CHECK gates, both init
+    modes, word for word, and one gate timed beside its bound. Returns (the
+    rows' launches, the kernel's max |diff|, the latency tile's entry of
+    the kernels line: its launches here, max |diff|, ms, plain ms, bound)."""
     from torus_fhe_tpu_torch.boot import api, bootstrap, gates
     from torus_fhe_tpu_torch.core import params as P
     from torus_fhe_tpu_torch.core.torus import decode_message
@@ -935,6 +946,37 @@ def profile_table(dev) -> tuple:
     log(f"B2 {name}", f"keygen {keygen_s:.2f} s, fb {tuple(fb.shape)} = {fb.numel() / 1e9:.2f} GB"
         f" ({len(geom.cols)} limb columns); kernel == plain on the full key B={B} stepvec; kernel"
         f" {ms:.3f} ms, plain {plain_s * 1e3:.1f} ms cold, bound {bound:.3f} ms ({bound_by})")
+    by_config = cuda_rotate.blind_rotate_cuda.by_config
+    before = by_config.get(cuda_rotate.LATENCY_CONFIG, 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plain_ms = {}
+    for Bl in LATENCY_CHECK:
+        if cuda_rotate.rotate_plan(Bl, geom, params.bs_decomp_length, sms).latency is None:
+            raise AssertionError(f"B2 {name}: B={Bl} does not take the latency tile")
+        sv_l = (sv[0], sv[1][:Bl].contiguous())
+        for mode, a, s in (("acc", rand_i32(rng, (Bl, geom.C, geom.N)), None),
+                           ("stepvec", None, sv_l)):
+            want, plain_s = sync_time(lambda: fblock.blind_rotate_fblock(
+                a, fb, bara[:Bl].contiguous(), *args, stepvec=s))
+            plain_ms[Bl, mode] = plain_s * 1e3
+            e = max_diff(cuda_rotate.blind_rotate_cuda(a, fb, bara[:Bl].contiguous(), *args,
+                                                       stepvec=s), want)
+            if e:
+                raise AssertionError(f"B2 {name}: latency tile != plain on the full key, B={Bl} "
+                                     f"{mode}: max |diff| {e}")
+    one = (sv[0], sv[1][:1].contiguous())
+    ms_l = event_ms(lambda: cuda_rotate.blind_rotate_cuda(None, fb, bara[:1].contiguous(), *args,
+                                                          stepvec=one), 3)
+    bound_l, by_l = cuda_rotate.rotate_bound_ms(1, geom, fb.numel())
+    latency = {"launches": by_config.get(cuda_rotate.LATENCY_CONFIG, 0) - before,
+               "max_abs_err": 0, "ms": ms_l, "plain_ms": plain_ms[1, "stepvec"],
+               "bound_ms": bound_l, "bound_by": by_l, "library_ms": None}
+    if latency["launches"] != 2 * len(LATENCY_CHECK) + 4:
+        raise AssertionError(f"B2 {name}: {latency['launches']} launches of the latency tile, "
+                             f"want {2 * len(LATENCY_CHECK) + 4}")
+    log(f"B2 {name}", f"latency tile == plain on the full key at B in {LATENCY_CHECK}, both modes"
+        f"; B=1 kernel {ms_l:.3f} ms, plain {plain_ms[1, 'stepvec']:.1f} ms, bound "
+        f"{bound_l:.3f} ms ({by_l}); {latency['launches']} launches")
     del plain, t, bara, sv, cx, cy
     (rows, _), counts, wall = launched(lambda: profile.measure(sk, ck, B, iters))
     print(profile.table(f"# device={SMI} params={name} batch={B}",
@@ -946,7 +988,7 @@ def profile_table(dev) -> tuple:
         f"launches; {wall:.1f} s; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{SMI}]")
     del sk, ck, fb
     torch.cuda.empty_cache()
-    return counts["blind_rotate"], err
+    return counts["blind_rotate"], err, latency
 
 
 def mesh_devices(k: int) -> list:

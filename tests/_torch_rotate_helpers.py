@@ -23,6 +23,15 @@ each thread's register fragment of A (the key: coefficient rows, digit
 columns), the TMA box of digit rows and its 128-byte swizzle as the MMA's B
 operand reads it, the two warpgroups' limbs (2w, 2w + 1), each limb's
 accumulator, and the join of the two warpgroups' folded words.
+``emulate_latency_kernel`` does it for the latency tile of
+csrc/rotate_latency.cuh (config 5), under the plan's own layout
+(``plan.latency``, what the launcher gets): the key boxes a block owns (key
+block m, polynomial, ``units`` x 8 coefficients, every limb), the ring of
+box-steps (which slot holds which step's box, filled by 3-D TMA boxes with
+the 128-byte swizzle), the digit rows each block builds for its pairs (i, j
+= i - d), the wgmma operands as their descriptors read them, the items the two
+warpgroups take, the limbs folded per coefficient, and the exact combination
+of the partials (this step's and the last) into the ping-pong accumulators.
 """
 
 import numpy as np
@@ -196,6 +205,8 @@ def emulate_kernel(acc0, key, bara, geom, l, lb, offset, plan):
     stages are TMA boxes of 64 rows x BK bytes of the key seen as rows of
     R*bs bytes, the box of limb column col at row ((s*D + m)*ncols + col)*bs
     + q0."""
+    if plan.latency is not None:
+        return emulate_latency_kernel(acc0, key, bara, geom, l, lb, offset, plan)
     BK = plan.tile.bk
     bs, nb, D = geom.bs, geom.nb, geom.D
     ncols, rbs = len(geom.cols), geom.R * geom.bs
@@ -226,6 +237,157 @@ def emulate_kernel(acc0, key, bara, geom, l, lb, offset, plan):
 
     return emulate_frame(acc0, bara, geom, l, lb, offset, plan,
                          box_rows if plan.tile.wgmma else key_rows)
+
+
+def _swizzled(rows):
+    """Byte offset of byte k of row r in ``rows`` rows of 128 bytes with the
+    128-byte swizzle (TMA's SWIZZLE_128B from a 1024-aligned base, and
+    rotate_gemm.cuh's tile_offset<128>): 16-byte chunk k/16 XOR r % 8."""
+    r, k = np.meshgrid(np.arange(rows), np.arange(128), indexing="ij")
+    return r * 128 + (((k >> 4) ^ (r & 7)) << 4) + (k & 15)
+
+
+def latency_boxes(plan, geom):
+    """Per block of the latency tile's grid: (m, d, i0, np, poly, q0), its
+    key box and its pairs (digit block i0 + p into output block i0 + p - d)."""
+    nb, D, C, width = geom.nb, geom.D, geom.C, plan.latency.units * 8
+    per_group = geom.bs // width
+    assert plan.blocks == (2 * nb - 1) * C * per_group == cuda_rotate.latency_blocks(
+        geom, plan.latency.units)
+    for b in range(plan.blocks):
+        group = b // per_group
+        mi, poly = group // C, group % C
+        m = mi if mi < nb else mi + 1
+        d = m if m < nb else m - D
+        yield m, d, max(d, 0), nb - abs(d), poly, (b % per_group) * width
+
+
+def emulate_latency_kernel(acc0, key, bara, geom, l, lb, offset, plan):
+    """csrc/rotate_latency.cuh over the kernel layout, block by block and
+    step by step. The producer fills slot s % slots with step s's box once
+    step s - slots has left it: per chunk kc, A tile ct (32 coefficients)
+    and limb pair h, four 3-D TMA boxes (2 key columns x 8 coefficients x
+    128 bytes of the key seen as (n*D*ncols, bs, R*bs)), box w at 2048*w,
+    column l of it at 1024*l, swizzled; a pair past the polynomial's limbs
+    is not loaded, the odd limb of a pair brings the next column's bytes.
+    Each block builds the digit rows of its pairs (row p*B + gate, byte
+    (lev*C + c)*bs + q of chunk k/128, swizzled; rows past np*B are stale
+    bytes), reads A (row 16w + 8l + c: coefficient 8w + c, limb 2h + l)
+    and B (N digit rows from row n0) through the wgmma descriptors (8-row
+    groups 1024 bytes apart), folds each coefficient's limbs, and add this
+    step's partial and the last into the accumulator that step s does not
+    read. Items are (A tile, N tile, part of the chunks): with fewer than
+    two tiles the two warpgroups split the chunks, each adding its own
+    partial."""
+    cfg, lay = plan.tile, plan.latency
+    B, n = bara.shape
+    N, C, bs, nb, D = geom.N, geom.C, geom.bs, geom.nb, geom.D
+    ncols, rbs = len(geom.cols), geom.R * geom.bs
+    nkc, slots, mtp = rbs // cfg.bk, lay.slots, lay.rows
+    a_tiles = lay.units * 8 // cfg.coefs
+    assert (cfg.coefs, cfg.bk) == (32, 128) and 1 <= slots <= cfg.most_slots
+    assert mtp >= nb * B and plan.scratch_bytes == B * C * N * 4 + 16
+    groups = cuda_rotate.poly_groups(geom)
+    key3 = key.numpy().reshape(n * D * ncols, bs, rbs)  # the tensor map's view
+    box_bytes = nkc * a_tiles * 2 * 8192
+    swz = _swizzled(8)  # (8, 128) within a 1024-byte group
+    tile_at = (np.arange(64)[:, None] // 8) * 1024 + swz[np.arange(64) % 8]  # (64, 128)
+    dig_at = _swizzled(mtp)
+    boxes = list(latency_boxes(plan, geom))
+    rng = np.random.default_rng(7)
+    # step s reads P[s % 2] and adds into the other; the last lands in out
+    P = [acc0.numpy().astype(np.uint32).copy() for _ in range(2)]
+    ring = [np.zeros((slots, box_bytes), np.int8) for _ in boxes]
+    held = [[None] * slots for _ in boxes]  # which step's box a slot holds
+    prev = [{} for _ in boxes]  # item -> (32, N) partial words of the last step
+    lmask, half = (1 << lb) - 1, 1 << (lb - 1)
+    t_idx = np.arange(N)
+    bara = bara.numpy()
+
+    def fill(b, s):
+        m, _, _, _, poly, q0 = boxes[b]
+        col0, nl = groups[poly]
+        st = s % slots
+        assert held[b][st] is None, "a slot refilled before its step was consumed"
+        for kc in range(nkc):
+            for ct in range(a_tiles):
+                for h in range((nl + 1) // 2):
+                    for w in range(4):
+                        col = (s * D + m) * ncols + col0 + 2 * h
+                        q = q0 + 32 * ct + 8 * w
+                        at = ((kc * a_tiles + ct) * 2 + h) * 8192 + w * 2048
+                        for lc in range(2):  # past the tensor's last column: zeros
+                            src = key3[col + lc, q:q + 8, kc * 128:(kc + 1) * 128] \
+                                if col + lc < key3.shape[0] else 0
+                            ring[b][st, at + lc * 1024 + swz] = src
+        held[b][st] = s
+
+    for b in range(len(boxes)):
+        for s in range(min(slots, n)):
+            fill(b, s)
+    for s in range(n):
+        cur, nxt = P[s % 2], P[(s + 1) % 2]
+        a = bara[:, s] & (2 * N - 1)
+        idx = t_idx[None, :] - (a & (N - 1))[:, None]
+        wrap = idx < 0
+        rot = np.take_along_axis(cur, np.broadcast_to(np.where(wrap, idx + N, idx)[:, None, :],
+                                                      cur.shape), axis=2)
+        rot = np.where(wrap[:, None, :], np.uint32(0) - rot, rot)
+        rot = np.where((a >= N)[:, None, None], np.uint32(0) - rot, rot)
+        x = rot - cur + np.uint32(offset & 0xFFFFFFFF)
+        digits = np.stack([(((x >> np.uint32(32 - (lev + 1) * lb)) & np.uint32(lmask))
+                            .astype(np.int64) - half).astype(np.int8) for lev in range(l)])
+        k = np.arange(rbs)
+        lev, c, q = k // (C * bs), (k // bs) % C, k % bs
+        for b, (m, d, i0, npairs, poly, q0) in enumerate(boxes):
+            col0, nl = groups[poly]
+            M = npairs * B
+            # the block's digit rows over stale bytes
+            dig = rng.integers(-128, 128, nkc * mtp * 128).astype(np.int8)
+            r = np.arange(M)
+            gate, i = r % B, i0 + r // B
+            dig[(k // 128)[None, :] * mtp * 128 + dig_at[r[:, None], (k % 128)[None, :]]] = \
+                digits[lev[None, :], gate[:, None], c[None, :], (i[:, None] * bs + q[None, :])]
+            st = s % slots
+            assert held[b][st] == s, "a step read a slot that holds another step's box"
+            slot = ring[b][st]
+            nt = cuda_rotate.latency_n_tile(M)
+            ntiles = -(-M // nt)
+            assert ntiles * nt <= mtp
+            kparts = min(2, nkc) if a_tiles * ntiles < 2 else 1
+            for item in range(a_tiles * ntiles * kparts):
+                ct, tile = item % a_tiles, (item // a_tiles) % ntiles
+                part, n0 = item // (a_tiles * ntiles), (item // a_tiles) % ntiles * nt
+                D_h = np.zeros((2, 64, nt), np.int64)
+                for kc in range(part, nkc, kparts):
+                    Bm = dig[kc * mtp * 128 + dig_at[n0:n0 + nt]].astype(np.int64)  # (nt, 128)
+                    for h in range((nl + 1) // 2):
+                        A = slot[((kc * a_tiles + ct) * 2 + h) * 8192 + tile_at].astype(np.int64)
+                        D_h[h] += A @ Bm.T
+                assert np.abs(D_h).max() < 2**31
+                v = np.zeros((32, nt), np.uint32)  # coefficient 8w + c of the A tile
+                rows = np.arange(64)
+                for h in range(2):
+                    for lc in range(2):
+                        limb = 2 * h + lc
+                        if limb < nl:
+                            sel = rows[(rows // 8) % 2 == lc]  # 16w + 8*lc + c
+                            v += D_h[h][sel].astype(np.int32).view(np.uint32) << np.uint32(
+                                geom.cols[col0 + limb][1])
+                last = prev[b].get(item, np.zeros((32, nt), np.uint32))
+                for nn in range(nt):
+                    r = n0 + nn
+                    if r < M:
+                        pp, g_ = divmod(r, B)
+                        j = i0 + pp - d
+                        assert 0 <= j < nb and 0 <= i0 + pp < nb and (i0 + pp - j) % D == m
+                        at = j * bs + q0 + 32 * ct
+                        nxt[g_, poly, at:at + 32] += v[:, nn] + last[:, nn]
+                prev[b][item] = v
+            held[b][st] = None  # released; the producer refills it
+            if s + slots < n:
+                fill(b, s + slots)
+    return torch.from_numpy(P[n % 2].view(np.int32))
 
 
 SEL_WNQ = 2  # coefficient groups of eight a warp holds, in every compact tile

@@ -8,7 +8,8 @@ shape, padded batch, tiles per wave, scratch and shared memory) is checked at
 the full-size sets. The kernel tests are marked ``cuda`` and skip without a
 GPU; on one, the kernel must equal the plain version word for word (exact
 integer arithmetic) in both init modes, at batches that are ragged against
-every tile shape, and two launches on two streams must finish and agree.
+every tile shape, with each tile at the real geometries, and two launches on
+two streams must finish and agree.
 """
 
 import numpy as np
@@ -125,11 +126,15 @@ def test_launch_plan(name):
     bytes, two consumer warpgroups and a producer warp), one block an SM in
     66 clusters of two; its 128-gate tiles fill every SM (1.45 rounds of the
     card a step at tfhe_128_tpu_fast, 1.94 at the N=1024 sets). Below, the
-    mma.sync tiles stay: B=1 the 16 x 8 tile, every tile a block of four
+    mma.sync tiles stay: B=16 the 16 x 8 tile, every tile a block of four
     warps that split its reduction, more blocks than SMs so that one gate's
-    key stream comes through all of them; B=16 the same, B=64 the 64 x 16
-    tile, B=200 that or 128 x 32. Ragged batches pad M up to the tile;
-    scratch is the digit rows alone (the output is the accumulator)."""
+    key stream comes through all of them; B=64 the 64 x 16 tile, B=200 that
+    or 128 x 32. B=1 up to the latency tile's most: that tile, one block a
+    key box (2*nb - 1 key blocks x C polynomials x boxes of 32 coefficients:
+    120 blocks at the N=1024 sets, 84 at the fast set), one block an SM; its
+    scratch is the second accumulator and a barrier word. Ragged batches pad M up to the
+    tile; the other tiles' scratch is the digit rows alone (the output is
+    the accumulator)."""
     geom, l = _full_size(name)
     n_big, digit_bytes = FULL_SIZE[name]
     wide = cuda_rotate.ROTATE_CONFIGS[cuda_rotate.WGMMA_CONFIG]
@@ -145,17 +150,47 @@ def test_launch_plan(name):
         assert plan.smem_bytes == 4 * (128 + 4 * 64) * 128 + 1024 + 4 * 16 <= 227 * 1024
         assert 2 * (plan.smem_bytes + 1024) > 228 * 1024
         assert plan.scratch_bytes == B * digit_bytes
-    for B in (1, 16, 64, 200):
+    for B in (16, 64, 200):
         plan = cuda_rotate.rotate_plan(B, geom, l, 132)
         assert plan.config in (0, 1, 2) and not plan.tile.wgmma
-        assert (plan.tile.bm, plan.tile.wq) == {1: (16, 8), 16: (16, 8), 64: (64, 16)}.get(
+        assert (plan.tile.bm, plan.tile.wq) == {16: (16, 8), 64: (64, 16)}.get(
             B, (128, 32) if n_big == 64 else (64, 16))
-    one = cuda_rotate.rotate_plan(1, geom, l, 132)
-    assert one.tile == cuda_rotate.TileConfig(16, 8, 3, 128, 3, 128, ksplit=4)
-    assert (one.m_tiles, one.padded_m, one.n_tiles) == (1, 16, 4 * n_big)
-    assert one.blocks == one.tiles == 4 * n_big > 132
-    assert one.smem_bytes == 4 * 3 * (16 + 4 * 8) * 128 and one.scratch_bytes == digit_bytes
-    assert 3 * (one.smem_bytes + 1024) <= 228 * 1024  # three blocks an SM
+    small = cuda_rotate.rotate_plan(16, geom, l, 132)
+    assert small.tile == cuda_rotate.TileConfig(16, 8, 3, 128, 3, 128, ksplit=4)
+    assert (small.m_tiles, small.padded_m, small.n_tiles) == (1, 16, 4 * n_big)
+    assert small.blocks == small.tiles == 4 * n_big > 132
+    assert small.smem_bytes == 4 * 3 * (16 + 4 * 8) * 128
+    assert small.scratch_bytes == 16 * digit_bytes
+    assert 3 * (small.smem_bytes + 1024) <= 228 * 1024  # three blocks an SM
+    latency = cuda_rotate.ROTATE_CONFIGS[cuda_rotate.LATENCY_CONFIG]
+    assert latency == cuda_rotate.LatencyTile(32, 128, 4, 288, latency.most_gates)
+    boxes = (2 * geom.nb - 1) * geom.C * geom.bs // 32
+    chunks = geom.R * geom.bs // 128
+    # ring slots at one gate and at the most: as many box-steps as fit beside
+    # the digit rows (a box is 96 KiB at R*bs = 768, 64 KiB at 512)
+    for B in (1, latency.most_gates):
+        slots = 3 if name == "mk_2party_3gen" else 2
+        plan = cuda_rotate.rotate_plan(B, geom, l, 132)
+        lay = plan.latency
+        assert plan.config == cuda_rotate.LATENCY_CONFIG and plan.tile is latency
+        assert (lay.units, lay.slots, plan.blocks) == (4, slots, boxes) and boxes <= 132
+        assert (plan.m_tiles, plan.padded_m) == (1, B)
+        # the largest pair set's digit rows (nb * B) in wgmma tiles of N = 8,
+        # 16 or 32, two when they do not fit one of 8; each warpgroup's
+        # partials (N words a thread, two items)
+        nt = 8 if geom.nb * B <= 16 else 16 if geom.nb * B <= 32 else 32
+        assert lay.n_tile == nt and lay.rows == -(-geom.nb * B // nt) * nt >= geom.nb * B
+        # the ring of box-steps (R*bs/128 chunks x 2 limb pairs x 64 rows of
+        # 128 bytes), the digit rows, the partials, the mbarriers (two a
+        # slot), two rotations a gate, 1 KiB to align
+        assert plan.smem_bytes == lay.smem == (
+            1024 + slots * (chunks * 2 * 64 * 128 + 16) + chunks * lay.rows * 128
+            + max(2, lay.rows // nt) * nt * 128 + 4 * 2 * latency.most_gates)
+        assert plan.smem_bytes <= 227 * 1024 < 2 * (plan.smem_bytes + 1024)
+        assert plan.scratch_bytes == B * geom.C * geom.N * 4 + 16
+        # the producer's pause after an A tile: the grid's A tiles at half
+        # the time 3.35 TB/s takes for them
+        assert lay.pace_ns == int(8192 * boxes / 3350 / 2)
     for B in (37, 130, 1100):  # ragged against every larger tile
         plan = cuda_rotate.rotate_plan(B, geom, l, 132)
         assert plan.padded_m == plan.m_tiles * plan.tile.bm >= B > plan.padded_m - plan.tile.bm
@@ -167,6 +202,37 @@ def test_launch_plan(name):
     # one SM: the 128-gate tiles of 130 gates fill it, one cluster of two
     plan = cuda_rotate.rotate_plan(130, geom, l, 1)
     assert plan.tile is wide and plan.blocks == 2 and plan.m_tiles == 2
+
+
+@pytest.mark.parametrize("name", list(FULL_SIZE))
+def test_latency_tile_takes_small_batches(name):
+    """B = 1 up to the tile's most take the latency tile at every set on
+    its path (tfhe_128, tfhe_128_tpu, the fast set, the 2-party 3gen hi
+    word), with the ring as deep as shared memory lets it be; above, up to
+    16 gates, the 16 x 8 tile, which is faster there on an H100; from B = 17
+    the plan is as before. On a card with fewer SMs than the step's key
+    blocks x polynomials the tile does not fit, and small batches take the
+    16 x 8 tile."""
+    geom, l = _full_size(name)
+    most = cuda_rotate.ROTATE_CONFIGS[cuda_rotate.LATENCY_CONFIG].most_gates
+    for B in range(1, most + 1):
+        plan = cuda_rotate.rotate_plan(B, geom, l, 132)
+        lay = plan.latency
+        assert plan.config == cuda_rotate.LATENCY_CONFIG
+        assert 1 <= lay.slots <= plan.tile.most_slots and lay.units == 4
+        assert plan.blocks == (2 * geom.nb - 1) * geom.C * geom.bs // (8 * lay.units) <= 132
+        box = 4 * geom.R * geom.bs * 32  # four limbs' rows of 32 coefficients
+        assert plan.smem_bytes <= cuda_rotate.BLOCK_SHARED_LIMIT
+        assert lay.slots == plan.tile.most_slots or \
+            plan.smem_bytes + box + 16 > cuda_rotate.BLOCK_SHARED_LIMIT
+    assert {cuda_rotate.rotate_plan(B, geom, l, 132).config
+            for B in range(most + 1, 17)} == {0}
+    assert cuda_rotate.rotate_plan(17, geom, l, 132).config == 1
+    assert all(cuda_rotate.rotate_plan(B, geom, l, 132).latency is None
+               for B in range(most + 1, 4097, 13))
+    small = (2 * geom.nb - 1) * geom.C - 1
+    assert cuda_rotate.latency_layout(1, geom, small) is None
+    assert cuda_rotate.rotate_plan(1, geom, l, small).config == 0
 
 
 def test_plan_takes_short_stages_where_the_long_do_not_divide():
@@ -184,7 +250,7 @@ def test_plan_takes_short_stages_where_the_long_do_not_divide():
     assert plans[0].tile == cuda_rotate.TileConfig(64, 16, 4, 128, 3, 64)
     assert [pl.padded_m for pl in plans] == [64, 64, 256]
     # the narrow tile is the only one with short stages
-    assert [c.bk for c in cuda_rotate.ROTATE_CONFIGS] == [128, 128, 128, 64, 128]
+    assert [c.bk for c in cuda_rotate.ROTATE_CONFIGS] == [128, 128, 128, 64, 128, 128]
 
 
 def test_plan_rejects_what_the_tiles_do_not_take():
@@ -226,15 +292,21 @@ def test_kernel_equals_plain_version(cuda_device, name, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wide", [False, True])
-def test_two_streams_at_once(cuda_device, wide):
+@pytest.mark.parametrize("case", ["mma_sync", "wgmma", "latency"])
+def test_two_streams_at_once(cuda_device, case):
     """Two rotates queued on two streams of one card (as
     parallel/mesh.run_batch_sharded does) finish and give the one-stream
     words: the grid barrier of one launch cannot wait on the other's, for
-    the mma.sync tiles and for the wgmma tile's clusters (1,024 gates of
+    the mma.sync tiles (40 gates of a small set), for the wgmma tile's
+    clusters (1,024 gates of tfhe_128, 16 steps) and for the latency tile,
+    whose barrier counter is in each launch's own scratch (1 gate of
     tfhe_128, 16 steps)."""
-    if wide:
+    if case == "wgmma":
         key, acc, bara, barb, args = _wide_world("tfhe_128", 1024, cuda_device)
+    elif case == "latency":
+        key, acc, bara, barb, args = _wide_world("tfhe_128", 1, cuda_device)
+        assert cuda_rotate.rotate_plan(1, args[0], args[1],
+                                       cuda_rotate._sm_count(cuda_device)).latency
     else:
         key, acc, bara, barb, args = _setup(PARAMS["k1_N256"](), 40, 3, device=cuda_device)
     want = cuda_rotate.blind_rotate_cuda(acc, key, bara, *args)
@@ -260,8 +332,11 @@ def _wide_world(name, B, device, steps=16):
         tg = P.PARAMETER_REGISTRY[name]().tgsw
     geom = geom._replace(n=steps)
     g = torch.Generator(device=device).manual_seed(B)
-    key = torch.randint(-128, 128, (steps,) + fblock.kernel_layout_shape(geom), generator=g,
-                        dtype=torch.int8, device=device)
+    key = torch.empty((steps,) + fblock.kernel_layout_shape(geom), dtype=torch.int8,
+                      device=device)
+    for s0 in range(0, steps, 64):  # 64 steps at a time: the full key is 7.93 GB
+        key[s0:s0 + 64] = torch.randint(-128, 128, key[s0:s0 + 64].shape, generator=g,
+                                        dtype=torch.int8, device=device)
     acc = torch.randint(-2**31, 2**31 - 1, (B, geom.C, geom.N), generator=g, dtype=torch.int32,
                         device=device)
     bara = torch.randint(0, 2 * geom.N, (B, steps), generator=g, dtype=torch.int32, device=device)
@@ -317,6 +392,70 @@ def test_wide_rotate_leaves_one_rotate_record(cuda_device, tmp_path):
     kernels = [ev for ev in events if ev.get("cat") == "kernel"
                and ev.get("args", {}).get("correlation") not in guards]
     assert len(kernels) == 1, [ev.get("name") for ev in kernels]
+    assert tracing.category(kernels[0]["name"], kernels[0]["cat"]) == tracing.ROTATE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tfhe_128", "mk_2party_3gen"])
+@pytest.mark.parametrize("B", [1, 2, 3])
+def test_latency_tile_equals_plain_version(cuda_device, name, B):
+    """The latency tile (csrc/rotate_latency.cuh) word for word against the
+    plain version on the real geometries' first 16 steps, in both init
+    modes: one gate (N tiles of 8), 2 and 3 (at the N=1024 sets 16 rows in
+    two N tiles of 8, and 24 rows in two of 16), with ``blind_rotate_cuda.by_config`` counting the launches under the
+    tile's config."""
+    key, acc, bara, barb, args = _wide_world(name, B, cuda_device)
+    plan = cuda_rotate.rotate_plan(B, args[0], args[1], cuda_rotate._sm_count(cuda_device))
+    assert plan.config == cuda_rotate.LATENCY_CONFIG and plan.latency
+    before = cuda_rotate.blind_rotate_cuda.by_config.get(plan.config, 0)
+    for acc_a, stepvec in ((acc, None), (None, (-(1 << 29), barb))):
+        got = cuda_rotate.blind_rotate_cuda(acc_a, key, bara, *args, stepvec=stepvec)
+        want = fblock.blind_rotate_fblock(acc_a, key, bara, *args, stepvec=stepvec)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert cuda_rotate.blind_rotate_cuda.grid == plan.blocks  # one block a key box
+    assert cuda_rotate.blind_rotate_cuda.by_config[plan.config] == before + 2
+
+
+@pytest.mark.cuda
+def test_latency_tile_full_chain(cuda_device):
+    """One gate through all 630 steps of tfhe_128 (a random 7.93 GB key in
+    the kernel layout): the latency tile's ping-pong accumulators end in the
+    output after an even step count, and its barrier counter reaches 120 x
+    629 arrivals; word-equal to the plain version, one launch, on config 5."""
+    key, acc, bara, barb, args = _wide_world("tfhe_128", 1, cuda_device, steps=630)
+    before = dict(cuda_rotate.blind_rotate_cuda.by_config)
+    got = cuda_rotate.blind_rotate_cuda(None, key, bara, *args, stepvec=(1 << 29, barb))
+    want = fblock.blind_rotate_fblock(None, key, bara, *args, stepvec=(1 << 29, barb))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    after = cuda_rotate.blind_rotate_cuda.by_config
+    assert {c: after[c] - before.get(c, 0) for c in after if after[c] != before.get(c, 0)} == \
+        {cuda_rotate.LATENCY_CONFIG: 1}
+
+
+@pytest.mark.cuda
+def test_latency_rotate_leaves_one_rotate_record(cuda_device, tmp_path):
+    """One launch of the latency tile (1 gate of tfhe_128, 16 steps) under
+    torch.profiler leaves exactly one kernel record, which the benchmark's
+    trace files as the expanded-key rotate (``rotate_ms_per_launch.circuit``
+    reads such records): no memset or second kernel a rotate."""
+    from perfbench import tracing
+    from torus_fhe_tpu_torch.utils import profiling
+
+    key, acc, bara, barb, args = _wide_world("tfhe_128", 1, cuda_device)
+    assert cuda_rotate.rotate_plan(1, args[0], args[1],
+                                   cuda_rotate._sm_count(cuda_device)).latency
+    torch.cuda.synchronize()
+    with profiling.device_trace(str(tmp_path), cuda_device):
+        cuda_rotate.blind_rotate_cuda(None, key, bara, *args, stepvec=(1 << 29, barb))
+    events = [ev for path in profiling._trace_files(str(tmp_path))
+              for ev in profiling._load(path) if ev.get("ph") == "X"]
+    guards = set().union(*profiling._guard_correlations(events).values())
+    kernels = [ev for ev in events if ev.get("cat") == "kernel"
+               and ev.get("args", {}).get("correlation") not in guards]
+    assert len(kernels) == 1, [ev.get("name") for ev in kernels]
+    assert kernels[0]["name"].startswith("blind_rotate_kernel")
     assert tracing.category(kernels[0]["name"], kernels[0]["cat"]) == tracing.ROTATE
 
 

@@ -17,7 +17,17 @@
 // chain and below that the device-memory rate of the key stream does.
 //
 // What the design does about it:
-//   * Step-synchronous, output-stationary over the whole card. One
+//   * Up to 3 gates (config 5): the latency tile of rotate_latency.cuh.
+//     Key-stationary: each block owns a fixed box of the step's key (block
+//     m, one polynomial, 32 coefficients) and multiplies it by every digit
+//     block it pairs with (warpgroup MMAs), so a key byte lands in one SM
+//     once a step; a producer warp streams the boxes by TMA up to four steps
+//     ahead of the chain; the blocks build their own digit rows; the partial
+//     sums are added with red.global.add into ping-pong accumulators, one
+//     grid barrier a step. The key's device-memory floor is 2.37 ms a rotate
+//     at tfhe_128; the chain bounds it above that: the digit rows' L2 reads,
+//     the MMAs, the adds and the barrier, ~6 us a step at one gate.
+//   * Above: step-synchronous, output-stationary over the whole card. One
 //     cooperative launch runs a persistent grid; each step's output tiles
 //     (M tile of gates x one polynomial's limb columns of WQ coefficients of
 //     output block j) are dealt round-robin to the blocks. A key byte then
@@ -42,8 +52,9 @@
 //     eight rows of an ldmatrix phase meet no bank conflict.
 //   * Three mma.sync tile shapes (the wrapper's launch plan picks by B and
 //     the SM count): 128 gates x 32 coefficients, 64 x 16, and 16 x 8 for
-//     B <= 16, with stages of 128 reduction bytes; a geometry whose R*bs is
-//     no multiple of 128 takes one 64 x 16 tile with 64-byte stages.
+//     B <= 16 (above the latency tile's 4), with stages of 128 reduction
+//     bytes; a geometry whose R*bs is no multiple of 128 takes one 64 x 16
+//     tile with 64-byte stages.
 //   * At wide batches (128-gate tiles of 64 coefficients that fill every SM)
 //     the GEMM phase is the tile of rotate_wgmma.cuh instead: warpgroup MMAs
 //     from a TMA ring, the key box multicast to a 2-block cluster.
@@ -60,28 +71,32 @@
 // The kernel's body is rotate_gemm.cuh, shared with blind_rotate_sel.cu, which
 // differs in where a tile's key operand comes from; the tiles are named here.
 
-#include "rotate_wgmma.cuh"  // and rotate_gemm.cuh
+#include "rotate_latency.cuh"  // and rotate_wgmma.cuh, rotate_gemm.cuh
 
 // One blind rotate of B gates: out (B, C, N) int32 is the accumulator in
 // place. acc_in == NULL selects the stepvec mode (barb and mu); otherwise barb
 // is unused. key is the kernel layout (n, D, ncols*bs, R*bs) int8; dig is
-// B*R*N bytes of scratch. config picks the tile (0: 16 gates x 8
-// coefficients; 1: 64 x 16; 2: 128 x 32, all with 128-byte pipeline stages,
-// which R*bs must be a multiple of; 3: 64 x 16 with 64-byte stages, which
-// take every geometry; 4: the wgmma tile, 128 x 64 in clusters of two,
-// 128-byte stages, bs a multiple of 64), blocks the grid asked for, which is cut
-// to what is co-resident (at most the tile's RESIDENT blocks per SM) and
-// reported in *grid_used. The limb columns of one polynomial must
-// be consecutive, at most four. Returns the CUDA error of the launch (0 on
-// success).
+// the scratch: B*R*N bytes of digit rows, or for config 5 the second
+// accumulator (B*C*N words) and a barrier word. config picks the tile (0:
+// 16 gates x 8 coefficients; 1: 64 x 16; 2: 128 x 32, all with 128-byte
+// pipeline stages, which R*bs must be a multiple of; 3: 64 x 16 with
+// 64-byte stages, which take every geometry; 4: the wgmma tile, 128 x 64
+// in clusters of two, 128-byte stages, bs a multiple of 64; 5: the latency
+// tile, key-stationary, at most 3 gates, its grid the key boxes of a step,
+// one an SM, which `blocks` must equal; `layout` is its plan, {units, slots,
+// shared-memory bytes, pace_ns}, and NULL for the others), blocks the grid
+// asked for, which is cut to what is co-resident (at most the tile's
+// RESIDENT blocks per SM) and reported in *grid_used. The limb columns of
+// one polynomial must be consecutive, at most four. Returns the CUDA error
+// of the launch (0 on success).
 extern "C" int blind_rotate_launch(void* out, const void* acc_in, const void* barb,
                                    const void* bara, const void* key, void* dig, int B,
                                    int config, int blocks, int n, int N, int bs, int C, int l,
                                    int lb, unsigned int offset, unsigned int mu, int ncols,
-                                   const int* col_poly, const int* col_shift, void* stream,
-                                   int* grid_used) {
+                                   const int* col_poly, const int* col_shift, const int* layout,
+                                   void* stream, int* grid_used) {
   if (blocks < 1 || bs % 32 || (l * C * bs) % 64) return (int)cudaErrorInvalidValue;
-  if (config < 0 || config > 4 || (config != 3 && (l * C * bs) % 128))
+  if (config < 0 || config > 5 || (config != 3 && (l * C * bs) % 128))
     return (int)cudaErrorInvalidValue;
   Geom g;
   if (!fill_geom(g, B, n, N, bs, C, l, lb, offset, mu, ncols, col_poly, col_shift))
@@ -104,6 +119,7 @@ extern "C" int blind_rotate_launch(void* out, const void* acc_in, const void* ba
     case 2: return (int)launch<T2>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     case 3: return (int)launch<T3>(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
     case 4: return (int)wg::launch(o, ai, bb, ba, k, d, g, blocks, grid_used, st);
+    case 5: return (int)lat::launch(o, ai, bb, ba, k, d, g, blocks, layout, grid_used, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

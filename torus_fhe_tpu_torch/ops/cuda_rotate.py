@@ -57,7 +57,8 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"blind_rotate": os.path.join(CSRC, "blind_rotate.cu"),
            "blind_rotate_sel": os.path.join(CSRC, "blind_rotate_sel.cu")}
 HEADERS = [os.path.join(CSRC, name)
-           for name in ("rotate_gemm.cuh", "rotate_wgmma.cuh", "rotate_sel_wgmma.cuh")]
+           for name in ("rotate_gemm.cuh", "rotate_wgmma.cuh", "rotate_latency.cuh",
+                        "rotate_sel_wgmma.cuh")]
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -121,15 +122,47 @@ class TileConfig(NamedTuple):
         return ring + 1024 + 16 * self.stages + (4 * self.bm * self.wq if self.compact else 0)
 
 
+class LatencyTile(NamedTuple):
+    """The latency tile of csrc/rotate_latency.cuh: key-stationary, a block
+    a key box of the step (``latency_layout``), wgmma A tiles of ``coefs``
+    coefficients x two limb columns, reduction chunks of ``bk`` bytes, a
+    ring of at most ``most_slots`` box-steps, ``threads`` threads (two
+    consumer warpgroups and a producer warp), at most ``most_gates`` gates
+    (the kernel's MAX_B)."""
+
+    coefs: int
+    bk: int
+    most_slots: int
+    threads: int
+    most_gates: int
+
+
+class LatencyLayout(NamedTuple):
+    """What ``latency_layout`` chooses for one launch of the latency tile.
+    The first four are the kernel's ``layout`` argument: the launcher
+    derives its shared-memory offsets from ``units`` and ``slots`` and
+    refuses the launch unless they add up to ``smem``."""
+
+    units: int    # units of 8 coefficients in a block's key box
+    slots: int    # box-steps the ring holds
+    smem: int     # dynamic shared memory a block
+    pace_ns: int  # the producer's pause after each A tile it copies
+    n_tile: int   # N of the wgmma tiles over the largest pair set's nb * B digit rows
+    rows: int     # those rows, in whole N tiles
+
+
 # indexed by the ``config`` argument of blind_rotate_launch: three mma.sync
 # tile shapes with 128-byte pipeline stages, the one that takes a geometry
 # whose R*bs is no multiple of 128 (an odd R at bs = 64), with 64-byte
-# stages, and the wgmma tile of wide batches (two consumer warpgroups and a
-# producer warp)
+# stages, the wgmma tile of wide batches (two consumer warpgroups and a
+# producer warp), and the latency tile of the smallest
 ROTATE_CONFIGS = (TileConfig(16, 8, 3, 128, 3, 128, 4), TileConfig(64, 16, 3, 128, 3, 128),
                   TileConfig(128, 32, 4, 256, 1, 128), TileConfig(64, 16, 4, 128, 3, 64),
-                  TileConfig(128, 64, 4, 288, 1, 128, wgmma=True))
-NARROW_CONFIG, WGMMA_CONFIG = 3, 4
+                  TileConfig(128, 64, 4, 288, 1, 128, wgmma=True),
+                  LatencyTile(32, 128, 4, 288, 3))
+NARROW_CONFIG, WGMMA_CONFIG, LATENCY_CONFIG = 3, 4, 5
+# the most dynamic shared memory a block may take on an H100
+BLOCK_SHARED_LIMIT = 227 * 1024
 WGMMA_CLUSTER = 2  # blocks of a cluster: gate tiles that share a key box
 # indexed by the ``config`` argument of blind_rotate_sel_launch: the tiles of
 # the compact kernel, wide in coefficients (the key side of a stage is a
@@ -144,7 +177,8 @@ SEL_CONFIGS = (TileConfig(16, 16, 4, 256, 1, 128, 8, True),
 SEL_NARROW_CONFIG, SEL_WGMMA_CONFIG = 2, 3
 # peak rates of an H100 SXM that the bounds are taken against: dense int8
 # tensor-core operations, float64 outside the tensor cores (NVIDIA's data
-# sheet), and device-memory bytes
+# sheet), and device-memory bytes (which also pace the latency tile's key
+# stream)
 INT8_OPS_PER_S = 1979e12
 FP64_OPS_PER_S = 34e12
 BYTES_PER_S = 3.35e12
@@ -162,16 +196,18 @@ class RotatePlan(NamedTuple):
     blind_rotate_sel.cu (``sel_plan``)."""
 
     config: int        # index into ROTATE_CONFIGS or SEL_CONFIGS
-    tile: TileConfig
-    m_tiles: int       # gate tiles: ceil(B / bm)
-    padded_m: int      # m_tiles * bm; rows past B are zero-filled and never stored
+    tile: TileConfig | LatencyTile
+    m_tiles: int       # gate tiles: ceil(B / bm) (the latency tile: 1)
+    padded_m: int      # m_tiles * bm (the latency tile: B); rows past B are zero-filled
     n_tiles: int       # per step: nb output blocks x C polynomials x bs / wq
     tiles: int         # m_tiles * n_tiles GEMM tiles per step
     blocks: int        # the persistent grid asked for (the C side cuts it to what is resident)
     waves: float       # tiles / SMs: rounds of the card per step
     fill: float        # tiles / (ceil(waves) * SMs): busy share of the rounds (1 below one)
     smem_bytes: int    # dynamic shared memory per block
-    scratch_bytes: int  # the int8 digit rows, B * R * N
+    scratch_bytes: int  # the int8 digit rows, B * R * N; the latency tile: the second
+    #                     accumulator, B * C * N words, and the barrier word
+    latency: LatencyLayout | None = None  # the latency tile's layout
 
 
 def _nvcc() -> str:
@@ -225,8 +261,11 @@ def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[name][0])
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     ip = ctypes.POINTER(ctypes.c_int)
-    launch = getattr(lib, f"{name}_launch")  # the two launchers take the same arguments
-    launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, i, ip, ip, vp, ip]
+    launch = getattr(lib, f"{name}_launch")
+    # the two launchers take the same arguments, and blind_rotate_launch the
+    # latency tile's layout besides
+    launch.argtypes = ([vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, u, u, i, ip, ip]
+                       + ([ip] if name == "blind_rotate" else []) + [vp, ip])
     launch.restype = ctypes.c_int
     return lib
 
@@ -283,26 +322,37 @@ def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
                 sm_count: int) -> RotatePlan:
     """How blind_rotate.cu runs ``B`` gates on a card of ``sm_count`` SMs.
 
-    The tile: 16 gates x 8 coefficients up to 16 gates (the key stream
-    bounds it: many small tiles spread it over every SM); else 128 x 32 when
-    that still gives at least three quarters of the SMs a tile, else 64 x 16;
-    and the wgmma tile (``WGMMA_CONFIG``, 128 x 64) instead of 128 x 32
-    where its tiles fill every SM at least once (wide batches: 1.46-1.71x
-    faster there on an H100). A geometry whose R*bs is no multiple of the
-    128-byte stages takes the one 64 x 16 tile with 64-byte stages at every
-    B.
+    The tile: up to ``most_gates`` gates the latency tile
+    (``LATENCY_CONFIG``, ``latency_layout``) wherever the geometry's key
+    boxes fit the card, one block an SM; up to 16 gates 16 x 8 (the key
+    stream bounds it: many small tiles spread it over every SM; the latency
+    tile, whose blocks each read their digit rows' accumulator words, is
+    not faster there on an H100: at B = 4 5.96 against 5.50 ms at the fast
+    set, 11.5 against 11.1 at mk_2party_3gen); else 128 x 32 when that still gives at least three quarters of the
+    SMs a tile, else 64 x 16; and the wgmma tile (``WGMMA_CONFIG``, 128 x
+    64) instead of 128 x 32 where its tiles fill every SM at least once
+    (wide batches: 1.46-1.71x faster there on an H100). A geometry whose
+    R*bs is no multiple of the 128-byte stages takes the one 64 x 16 tile
+    with 64-byte stages at every B.
 
     The grid: every tile a block, up to what is resident at once (the
     tile's ``resident`` per SM, within shared memory, threads and the block
     limit): blocks that share an SM share its rounds, so more of them only
     hide latency; the wgmma tile's grid is whole clusters, a pair of gate
     tiles of one key box each. A ragged last round is left ragged: tiles are
-    dealt round-robin, gate tiles of one key box side by side."""
+    dealt round-robin, gate tiles of one key box side by side. The latency
+    tile's grid is the step's key boxes."""
     _check_plan(B, geom, decomp_length, "blind_rotate.cu", 32, 64)
     small, mid, big = 0, 1, 2
+    layout = latency_layout(B, geom, sm_count)
     if geom.R * geom.bs % ROTATE_CONFIGS[small].bk:
         config = NARROW_CONFIG
-    elif B <= ROTATE_CONFIGS[small].bm:
+    elif layout is not None:
+        blocks = latency_blocks(geom, layout.units)
+        return RotatePlan(LATENCY_CONFIG, ROTATE_CONFIGS[LATENCY_CONFIG], 1, B, blocks, blocks,
+                          blocks, blocks / sm_count, 1.0, layout.smem,
+                          B * geom.C * geom.N * 4 + 16, layout)
+    elif B <= ROTATE_CONFIGS[small].bm:  # also where the key boxes outnumber the SMs
         config = small
     else:
         m_big, n_big = _tile_counts(ROTATE_CONFIGS[big], B, geom)
@@ -312,6 +362,63 @@ def rotate_plan(B: int, geom: FBlockGeometry, decomp_length: int,
         if config == big and geom.bs % wide.wq == 0 and m_wide * n_wide >= sm_count:
             config = WGMMA_CONFIG
     return _plan(config, ROTATE_CONFIGS[config], B, geom, sm_count)
+
+
+def latency_n_tile(rows: int) -> int:
+    """N of the latency tile's wgmma tiles over ``rows`` digit rows (at
+    most 64): the least of 8, 16, 32 that halves them (one tile a
+    warpgroup)."""
+    nt = 8
+    while nt < 32 and 2 * nt < rows:
+        nt *= 2
+    return nt
+
+
+def latency_blocks(geom: FBlockGeometry, units: int) -> int:
+    """The latency tile's grid: a step's key boxes, key blocks m = (i - j)
+    mod D of the 2*nb - 1 offsets i - j that pair a digit block i with an
+    output block j, times the C polynomials, times the bs coefficients in
+    boxes of ``units`` units of 8 (every limb column of the polynomial)."""
+    return (2 * geom.nb - 1) * geom.C * (geom.bs // (8 * units))
+
+
+@functools.lru_cache(maxsize=256)
+def latency_layout(B: int, geom: FBlockGeometry, most: int) -> LatencyLayout | None:
+    """The latency tile's layout for ``B`` gates within ``most`` blocks
+    (``LatencyLayout``), or None where the tile does not take them.
+
+    ``units`` is the least power of two from 4 (one A tile of 32
+    coefficients) dividing bs/8 that leaves at most ``most`` key boxes
+    (``latency_blocks``). Shared memory: the 1024-aligned ring of ``slots``
+    box-steps (R*bs/128 chunks x units/4 A tiles x 2 limb pairs x 64 rows of
+    128 bytes), the digit rows that the largest pair set's wgmma tiles read
+    (``latency_n_tile`` of nb * B rows, at most 64, in whole tiles), each
+    item's partial words (N words a thread of a warpgroup; two items at
+    least), a full and an empty mbarrier a slot and two rotations a gate;
+    as many slots as fit ``BLOCK_SHARED_LIMIT``, up to ``most_slots``. The
+    producer paces its copies at the grid's share of the device-memory rate
+    (``BYTES_PER_S``), at half the pause, since __nanosleep may sleep up to
+    twice as long as asked."""
+    tile = ROTATE_CONFIGS[LATENCY_CONFIG]
+    rbs, rows = geom.R * geom.bs, geom.nb * B
+    if rbs % tile.bk or geom.bs % tile.coefs or B > tile.most_gates or rows > 64:
+        return None
+    units = tile.coefs // 8
+    while latency_blocks(geom, units) > most and geom.bs % (16 * units) == 0:
+        units *= 2
+    if latency_blocks(geom, units) > most:
+        return None
+    nt = latency_n_tile(rows)
+    tiles = -(-rows // nt)
+    a_tiles = units * 8 // tile.coefs
+    box = rbs // tile.bk * a_tiles * 2 * 64 * tile.bk
+    items = max(2, a_tiles * tiles)
+    fixed = 1024 + rbs // tile.bk * tiles * nt * tile.bk + items * nt * 128 + 8 * tile.most_gates
+    slots = min(tile.most_slots, (BLOCK_SHARED_LIMIT - fixed) // (box + 16))
+    if slots < 1:
+        return None
+    pace_ns = int(64 * tile.bk * latency_blocks(geom, units) / (BYTES_PER_S / 1e9) / 2)
+    return LatencyLayout(units, slots, fixed + slots * (box + 16), pace_ns, nt, tiles * nt)
 
 
 def _tile_counts(cfg: TileConfig, B: int, geom: FBlockGeometry) -> tuple:
@@ -464,6 +571,9 @@ def _launch(name: str, plan: RotatePlan, acc_a, key, bara, geom: FBlockGeometry,
     else:
         mu, barb = int(stepvec[0]) & 0xFFFFFFFF, stepvec[1].contiguous()
     grid = ctypes.c_int(0)
+    # blind_rotate_launch's layout argument: the latency tile's plan, else NULL
+    layout = () if name != "blind_rotate" else (
+        None if plan.latency is None else (ctypes.c_int * 4)(*plan.latency[:4]),)
     events = None if launch_events is None else [torch.cuda.Event(enable_timing=True)
                                                  for _ in range(2)]
     with torch.cuda.device(key.device):
@@ -474,7 +584,7 @@ def _launch(name: str, plan: RotatePlan, acc_a, key, bara, geom: FBlockGeometry,
             out.data_ptr(), _ptr(acc_a), _ptr(barb), bara.data_ptr(), key.data_ptr(),
             dig.data_ptr(), B, plan.config, plan.blocks, key.shape[0], geom.N, geom.bs, geom.C,
             decomp_length, log2_base, offset & 0xFFFFFFFF, mu, len(geom.cols),
-            *_col_arrays(geom), torch.cuda.current_stream(key.device).cuda_stream,
+            *_col_arrays(geom), *layout, torch.cuda.current_stream(key.device).cuda_stream,
             ctypes.byref(grid))
         if events:
             events[1].record()

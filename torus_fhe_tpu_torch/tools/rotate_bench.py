@@ -12,13 +12,18 @@ one whose kernel reads the kernel layout (``fblock.to_kernel_layout``), and
 likewise for the compact lines (``fblock.to_sel_kernel_layout``): the key is
 random bytes either way, since the kernel's time does not depend on the key
 being an encryption. Shapes whose name ends in ``_compact`` or starts with
-``mk4_`` or ``mk8_`` run the compact kernel.
+``mk4_`` or ``mk8_`` run the compact kernel; ``<shape>:<B>`` runs a shape at
+another batch (``t128_1:4``).
 
 Per shape it prints one JSON line: kernel ms (CUDA events, mean of ``--reps``
 after one warm-up), optionally the plain version's ms (``--plain``), the
 bound from shapes (``cuda_rotate.rotate_bound_ms``, where the timed package
 has it), and with ``--check S`` whether kernel == plain
-(``blind_rotate_fblock``, ``blind_rotate_streamed``) on the first S steps. The first line names the card and its power limit.
+(``blind_rotate_fblock``, ``blind_rotate_streamed``) on the first S steps,
+and with ``--host K`` the host's microseconds a launch call takes (the
+best of 10 rounds of K calls in a row over the first 2 steps, so that the
+card keeps up and the calls never wait for it). The first line names the
+card and its power limit.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.realpath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
@@ -67,7 +73,10 @@ SHAPES = {
     "l3_1024": (lambda: _single("tfhe_128_tpu"), 1024, "stepvec"),
     "l3_1": (lambda: _single("tfhe_128_tpu"), 1, "stepvec"),
     "t128_1024": (lambda: _single("tfhe_128"), 1024, "stepvec"),
+    "t128_1": (lambda: _single("tfhe_128"), 1, "stepvec"),
+    "t128_16": (lambda: _single("tfhe_128"), 16, "stepvec"),
     "mk2_1024": (lambda: _mk("mk_2party_3gen", 2), 1024, "stepvec"),
+    "mk2_1": (lambda: _mk("mk_2party_3gen", 2), 1, "stepvec"),
     "mk2_stage_256": (lambda: _mk("mk_2party_3gen", 1), 256, "acc"),   # one party's 520 steps
     "mk2_stage_64": (lambda: _mk("mk_2party_3gen", 1), 64, "acc"),
     "mk8_256": (lambda: _mk("mk_8party_3gen", 8), 256, "stepvec", "compact"),
@@ -95,6 +104,20 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_us(fn, calls: int, rounds: int = 10) -> float:
+    """The least host time of one call of ``fn`` over ``rounds`` rounds of
+    ``calls`` calls in a row, the card idle before each round."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t) / calls)
+    torch.cuda.synchronize()
+    return best * 1e6
+
+
 def random_key(geom, kernel_layout: bool, dev, compact: bool = False) -> torch.Tensor:
     """Random bytes in the shape of the key the timed package's kernel reads.
     Compact lines are made in ``build_sel``'s layout and turned into the
@@ -120,6 +143,8 @@ def main() -> int:
     ap.add_argument("--plain", action="store_true", help="time the plain version too")
     ap.add_argument("--check", type=int, default=0, metavar="S",
                     help="compare kernel and plain version on the first S steps")
+    ap.add_argument("--host", type=int, default=0, metavar="K",
+                    help="time the host side of K launch calls in a row")
     ap.add_argument("--label", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -140,8 +165,10 @@ def main() -> int:
                 print(f"# {name}: {ln.strip()}", flush=True)
     keys = {}
     for name in args.shapes.split(","):
-        make, B, mode = SHAPES[name][:3]
-        compact = SHAPES[name][3:] == ("compact",)
+        base, _, batch = name.partition(":")
+        make, B, mode = SHAPES[base][:3]
+        B = int(batch) if batch else B
+        compact = SHAPES[base][3:] == ("compact",)
         geom, l, lb, offset = make()
         N, C = geom.N, geom.C
         kid = (geom, l, compact)
@@ -170,13 +197,18 @@ def main() -> int:
             torch.cuda.synchronize()
             rec["max_abs_err"] = (got.long() - want.long()).abs().max().item()
             rec["checked_steps"] = S
+        if args.host:
+            g_2, bara_2 = geom._replace(n=2), bara[:, :2].contiguous()
+            rec["host_us"] = host_us(lambda: kernel(a, key[:2], bara_2, g_2, l, lb, offset,
+                                                    stepvec=sv), args.host)
         rec["ms"] = event_ms(lambda: kernel(a, key, bara, *rot, stepvec=sv), args.reps)
         rec["us_per_step"] = rec["ms"] * 1e3 / geom.n
         if hasattr(kernel, "grid"):
             make_plan = cuda_rotate.sel_plan if compact else cuda_rotate.rotate_plan
             plan = make_plan(B, geom, l,
                              torch.cuda.get_device_properties(dev).multi_processor_count)
-            rec["tile"], rec["config"] = [plan.tile.bm, plan.tile.wq], plan.config
+            rec["config"] = plan.config
+            rec["tile"] = [plan.tile.bm, plan.tile.wq] if hasattr(plan.tile, "bm") else "latency"
             rec["tiles"], rec["grid"] = plan.tiles, kernel.grid
         if args.plain:
             rec["plain_ms"] = event_ms(lambda: plain(a, key, bara, *rot, stepvec=sv), 1)
