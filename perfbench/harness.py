@@ -2,10 +2,14 @@
 decides ``correct``, and the result line.
 
 Everything a cell needs is found by name from BENCHMARK.json: its
-configuration (perfbench/configs/<config>.json), its traffic mix
-(perfbench/traffic/<traffic>.json, read by traffic.py) and every metric's
-reader (perfbench/metrics/<metric>.py, a ``read(run)`` that returns a
-number, or None where it finds nothing to read).
+configuration (perfbench/configs/<config>.json), whose ``scheme`` names
+the scheme's key material and reference (perfbench/schemes/<scheme>.py)
+and its program side (perfbench/drive/<scheme>.py); its traffic mix
+(perfbench/traffic/<traffic>.json), whose ``kind`` names its generator
+(perfbench/kinds/<kind>.py) and, for a circuit, whose ``circuit`` names
+perfbench/circuits/<circuit>.py; and every metric's reader
+(perfbench/metrics/<metric>.py, a ``read(run)`` that returns a number, or
+None where it finds nothing to read).
 
 Set-up is everything from the process's start to the window: imports, the
 key material made from the seed on the card (keys.py), the program's key
@@ -23,6 +27,7 @@ import gc
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -130,6 +135,14 @@ def prepare(root: str, workload: str, seed: int, device, spec: dict,
     return Setup(cfg, mix, keys, work, material_s, keygen_s, time.perf_counter() - t)
 
 
+def difference(after, before):
+    """A counter's growth over the window; of a dict of counts (launches per
+    tile config), the entries that grew."""
+    if isinstance(after, dict):
+        return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    return after - before
+
+
 def release(work) -> None:
     """Free the program's state (its cloud key) before the reference runs."""
     work.prog = None
@@ -181,7 +194,7 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
 
     run = dict(rec, workload=workload, config=cfg, mix=mix, seconds=seconds, setup_s=setup_s,
                keygen_s=keygen_s, material_s=material_s, trace=tr or None,
-               counters={k: after[k] - before[k] for k in after})
+               counters={k: difference(after[k], before[k]) for k in after})
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in metrics_of(spec, kind, workload):
@@ -200,6 +213,9 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
         result["breakdown"] = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"]}
         log(f"trace: intact {tr['intact']}, device s by category {tr['device_s']}, "
             f"records {tr['records']}")
+        log("spans: " + ", ".join(f"{k} count {v['count']} idle {v['idle_s']:.3f} s device "
+                                  f"{v['device_s']:.3f} s syncs {v['syncs']}"
+                                  for k, v in tr["spans"].items()))
     result["card"] = card(device)
     result["checks"] = {
         "words_differing": {"value": checks["words_differing"], "at_most": 0},
@@ -208,4 +224,12 @@ def run_cell(root: str, workload: str, seed: int, seconds: float, trace: bool,
     }
     log(f"window {rec['window_s']:.3f} s, {rec['units']} units, counters {run['counters']}, "
         f"compared {checks}")
+    lat = [1e3 * s for s in rec.get("latencies_s") or []]
+    if len(lat) >= 10:
+        q = statistics.quantiles(lat, n=10)
+        tenths = [statistics.median(lat[i * len(lat) // 10:(i + 1) * len(lat) // 10])
+                  for i in range(10)]
+        log(f"latency ms: min {min(lat):.2f}, p10 {q[0]:.2f}, p50 {q[4]:.2f}, p90 {q[8]:.2f}, "
+            f"max {max(lat):.2f}; median by tenth of the window "
+            + " ".join(f"{t:.2f}" for t in tenths))
     return result

@@ -40,9 +40,11 @@ def rotate_launches(run: dict) -> tuple:
 
 def rotate_roofline_percent(run: dict):
     """The rotate's bound (workcount.rotate at the window's batch) over the
-    mean device time of a rotate kernel record."""
+    mean device time of a rotate kernel record; None where the count does
+    not read the configuration."""
     seconds, records = rotate_records(run)
     launches, rows = rotate_launches(run)
     if not records or not launches or rows % launches:
         return None
-    return 100.0 * workcount.rotate(run["config"], rows // launches).bound_s() / (seconds / records)
+    work = workcount.rotate(run["config"], rows // launches)
+    return None if work is None else 100.0 * work.bound_s() / (seconds / records)

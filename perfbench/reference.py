@@ -1,16 +1,16 @@
-"""The plain reference of what the benchmark's cells compute: TFHE gate
-bootstrapping (mod-switch, blind rotate, sample extract, keyswitch) and the
-circuits built from it, for the single-key scheme and for the 3rd-gen
-multikey scheme.
+"""The plain reference's library: TFHE gate bootstrapping (mod-switch,
+blind rotate, sample extract, keyswitch) in plain PyTorch, which every
+scheme's reference (perfbench/schemes/<scheme>.py) composes, and the
+entry point ``Reference``, which finds a configuration's scheme by name.
 
-Plain PyTorch; it imports nothing of the program under test. It reads the
-raw key material that the benchmark makes from the seed (keys.py) and works
-out again everything the program derives from it. Torus words are held in
-int64 tensors as signed 32-bit values (``wrap32`` after every step). A
-negacyclic product is a float64 matrix product against the
-negacirculant matrix of one side (``negacyclic_matrix``): every partial sum
-is an integer of at most 2^50 in magnitude, so float64 holds it exactly, in
-any order of summation.
+Plain PyTorch; it imports nothing of the program under test. A scheme's
+reference reads the raw key material that the benchmark makes from the seed
+and works out again everything the program derives from it. Torus words are
+held in int64 tensors as signed 32-bit values (``wrap32`` after every step).
+A negacyclic product is a float64 matrix product against the negacirculant
+matrix of one side (``negacyclic_matrix``): every partial sum is an integer
+of at most 2^50 in magnitude, so float64 holds it exactly, in any order of
+summation.
 
 The definitions follow the TFHE library and the 3-gen-mk-tfhe reference:
 
@@ -22,10 +22,7 @@ The definitions follow the TFHE library and the 3-gen-mk-tfhe reference:
   sum over digit level p and polynomial j of digit[p, j] * row[p, j];
 - extract: a = (m0, -m_{N-1}, ..., -m_1) per mask polynomial, b = body[0];
 - keyswitch: digits of (a_i + 2^(31 - lb t)) in base 2^lb, t of them, and
-  (0, b) minus the table's samples that the non-zero digits select;
-- a 3gen key is the 64-bit AKO uni-encryption, rounded to its high word
-  (``hi_round``); its chain is the 32-bit one over parties*n steps, party
-  major, and its keyswitch applies every party's table to the one mask.
+  (0, b) minus the table's samples that the non-zero digits select.
 
 ``digits_dropped`` leaves out the last gadget digits of every external
 product: the control, which computes below the precision the parameters
@@ -34,7 +31,11 @@ state, and which the comparison has to refuse.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from .byname import ByName
 
 MASK32 = 0xFFFFFFFF
 # the affine part of each two-input gate: pre = (0, c) + k * (x + y)
@@ -47,12 +48,6 @@ CHUNK = 2048  # rows of one reference product: bounds its memory on the card
 def wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 values reduced to signed 32-bit words."""
     return ((x + (1 << 31)) & MASK32) - (1 << 31)
-
-
-def hi_round(x64: torch.Tensor) -> torch.Tensor:
-    """A 64-bit torus word rounded to the nearest multiple of 2^32, as its
-    high 32-bit word (signed, in int64)."""
-    return (x64 + (1 << 31)) >> 32
 
 
 def negacyclic_matrix(k: torch.Tensor) -> torch.Tensor:
@@ -140,23 +135,16 @@ def keyswitch_deltas(a: torch.Tensor, table: torch.Tensor, t: int, lb: int) -> t
     return wrap32(exact_product(onehot, table))
 
 
-class Reference:
-    """The plain gate bootstrap of one configuration (a configs/*.json),
-    over the raw key material of keys.py."""
+SCHEMES = ByName("schemes", "scheme")
+CIRCUITS = ByName("circuits", "circuit")
 
-    def __init__(self, cfg: dict, keys, digits_dropped: int = 0):
-        p = cfg["params"]
-        self.scheme, self.parties = cfg["scheme"], cfg["parties"]
-        self.N, self.n = p["rlwe_polynomial_degree"], p["lwe_size"]
-        if self.scheme == "single":
-            self.l, self.lb = p["bs_decomp_length"], p["bs_log2_base"]
-            self.key = keys.bk
-        else:
-            self.l, self.lb = p["gsw_decomp_length"], p["gsw_log2_base"]
-            self.key = hi_round(keys.bk)
-        self.t, self.ks_lb = p["ks_decomp_length"], p["ks_log2_base"]
-        self.table = keys.ks.reshape(-1, keys.ks.shape[-1]).to(torch.float64)
-        self.digits_dropped = digits_dropped
+
+class Gates:
+    """What every scheme's plain gate bootstrap shares: the bootstrap in
+    chunks of CHUNK rows (a scheme gives ``_bootstrap`` of one chunk), the
+    affine step of each two-input gate, and the circuits of
+    perfbench/circuits/ over these gates, found by name
+    (``ref.circuit("add")(*words, width)``)."""
 
     def bootstrap(self, a: torch.Tensor, b: torch.Tensor) -> tuple:
         """The gate bootstrap of pre-activation samples a (S, n) or
@@ -164,17 +152,8 @@ class Reference:
         outs = [self._bootstrap(a[s:s + CHUNK], b[s:s + CHUNK]) for s in range(0, len(b), CHUNK)]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
-    def _bootstrap(self, a, b):
-        S = b.shape[0]
-        bara = mod_switch(a.reshape(S, -1), self.N)
-        barb = mod_switch(b, self.N)
-        acc = blind_rotate(bara, barb, MU, self.key, self.l, self.lb, self.digits_dropped)
-        ea, eb = extract(acc)
-        deltas = keyswitch_deltas(ea, self.table, self.t, self.ks_lb)
-        if self.scheme == "single":
-            return wrap32(-deltas[:, :self.n]), wrap32(eb - deltas[:, self.n])
-        deltas = deltas.reshape(S, self.parties, self.n + 1)
-        return wrap32(-deltas[..., :self.n]), wrap32(eb - deltas[..., self.n].sum(-1))
+    def _bootstrap(self, a: torch.Tensor, b: torch.Tensor) -> tuple:
+        raise NotImplementedError
 
     def gates(self, kinds, xa, xb, ya, yb) -> tuple:
         """Two-input gates, one kind a row (``kinds``: names of AFFINE)."""
@@ -183,26 +162,14 @@ class Reference:
         ka = k.reshape((-1,) + (1,) * (xa.dim() - 1))
         return self.bootstrap(wrap32(ka * (xa + ya)), wrap32(c + k * (xb + yb)))
 
-    def less_than(self, wa, wb, width: int) -> tuple:
-        """The sign bit of a - b = a + ~b + 1, as circuits/words.less_than
-        computes it (a ripple of full adders: axb = a^b, s = axb^c,
-        carry = (a&b) | (axb&c)), for words (width, S, ...) of S circuits.
-        Only the gates that bit width-1 depends on are evaluated: the sum
-        bits below it feed nothing."""
-        (aa, ab), (ba, bb) = wa, wb
-        nba, nbb = wrap32(-ba), wrap32(-bb)  # NOT is free
-        S = ab.shape[1]
-        # every a_i ^ ~b_i and a_i & ~b_i in one batch
-        kinds = ["xor"] * (width * S) + ["and"] * (width * S)
-        xa = torch.cat([aa, aa]).reshape((2 * width * S,) + aa.shape[2:])
-        xb = torch.cat([ab, ab]).reshape(-1)
-        ya = torch.cat([nba, nba]).reshape(xa.shape)
-        yb = torch.cat([nbb, nbb]).reshape(-1)
-        oa, ob = self.gates(kinds, xa, xb, ya, yb)
-        axb = (oa[:width * S].reshape(aa.shape), ob[:width * S].reshape(ab.shape))
-        c1 = (oa[width * S:].reshape(aa.shape), ob[width * S:].reshape(ab.shape))
-        carry = (torch.zeros_like(aa[0]), torch.full_like(ab[0], EIGHTH))  # the trivial 1
-        for i in range(width - 1):
-            c2 = self.gates(["and"] * S, axb[0][i], axb[1][i], *carry)
-            carry = self.gates(["or"] * S, c1[0][i], c1[1][i], *c2)
-        return self.gates(["xor"] * S, axb[0][width - 1], axb[1][width - 1], *carry)
+    def circuit(self, name: str):
+        """The circuit perfbench/circuits/<name>.py over these gates:
+        ``(*words, width) -> (a, b)``."""
+        return functools.partial(CIRCUITS[name].circuit, self.gates)
+
+
+def Reference(cfg: dict, keys, digits_dropped: int = 0) -> Gates:
+    """The plain gate bootstrap of one configuration (a configs/*.json) over
+    the raw key material of keys.py: the ``Reference`` of
+    perfbench/schemes/<scheme>.py."""
+    return SCHEMES[cfg["scheme"]].Reference(cfg, keys, digits_dropped)

@@ -32,15 +32,20 @@ def small_config(scheme: str) -> dict:
             "params": dataclasses.asdict(p)}
 
 
+# the layered mixes keep every gate for the check: at one or two layers a
+# window, a sample of a layer would miss a fault in one gate a call
 SMALL_MIXES = {
     "tfhe128.wide": {"kind": "layered", "batch": 64, "gates": ["and", "nand", "or", "xor"],
-                     "lookahead": 2, "checked_per_layer": 8},
+                     "lookahead": 2, "checked_per_layer": 64},
     "mk2p3gen.wide": {"kind": "layered", "batch": 64, "gates": ["nand"], "lookahead": 2,
-                      "checked_per_layer": 8},
+                      "checked_per_layer": 64},
     "tfhe128.cmp8": {"kind": "circuit", "circuit": "less_than", "width": 8, "operand_bits": 7,
                      "batch": 1, "pool": 4},
+    "mk2p3gen.add8": {"kind": "circuit", "circuit": "add", "width": 8, "operand_bits": 8,
+                      "batch": 1, "pool": 4},
 }
-SCHEME = {"tfhe128.wide": "single", "mk2p3gen.wide": "3gen", "tfhe128.cmp8": "single"}
+SCHEME = {"tfhe128.wide": "single", "mk2p3gen.wide": "3gen", "tfhe128.cmp8": "single",
+          "mk2p3gen.add8": "3gen"}
 
 
 @pytest.fixture

@@ -59,6 +59,46 @@ def test_sources_import_no_jax():
             assert not {n.split(".")[0] for n in names} & FORBIDDEN, (path, names)
 
 
+PROGRAM = "torus_fhe_tpu_torch"
+REFERENCE_SIDE = ("keys.py", "reference.py", "schemes", "circuits")
+
+
+def imported(path: str) -> set:
+    """The modules a file imports: top-level names, and ``.name`` for a
+    module of the benchmark imported relatively."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+        elif isinstance(node, ast.ImportFrom):
+            names |= {"." + (node.module or a.name).split(".")[0] for a in node.names}
+    return names
+
+
+def test_only_the_program_side_imports_the_program():
+    """Of the benchmark's files (its tests aside), program.py and the scheme
+    files of drive/ alone import the program; the reference's side
+    (keys.py, reference.py, schemes/, circuits/) imports neither the program
+    nor those files."""
+    bench = os.path.join(ROOT, "perfbench")
+    drives = glob.glob(os.path.join(bench, "drive", "*.py"))
+    assert len(drives) > 2 and all(PROGRAM in imported(p) for p in drives
+                                   if not p.endswith("__init__.py"))
+    for path in glob.glob(os.path.join(bench, "**", "*.py"), recursive=True):
+        rel = os.path.relpath(path, bench)
+        top = rel.split(os.sep)[0]
+        if top in ("tests", "drive") or rel == "program.py":
+            continue
+        names = imported(path)
+        assert PROGRAM not in names, rel
+        if top in REFERENCE_SIDE:
+            assert not names & {".program", ".drive", ".harness", ".kinds"}, (rel, names)
+
+
 def test_every_name_resolves_to_a_file():
     s = spec()
     configs = {c["name"] for c in s["configs"]}

@@ -50,8 +50,8 @@ def test_less_than_word_for_word():
     rng = np.random.default_rng(2)
     va, vb = rng.integers(0, 128, 3), rng.integers(0, 128, 3)
     wa, wb = less_than_words(cfg, keys, gen, va), less_than_words(cfg, keys, gen, vb)
-    out = prog.less_than(prog.wrap(*wa), prog.wrap(*wb), 8)
-    ra, rb = Reference(cfg, keys).less_than(wa, wb, 8)
+    out = prog.circuit("less_than")(prog.wrap(*wa), prog.wrap(*wb), 8)
+    ra, rb = Reference(cfg, keys).circuit("less_than")(wa, wb, 8)
     assert torch.equal(ra, out.a.to(torch.int64)) and torch.equal(rb, out.b.to(torch.int64))
     assert np.array_equal(K.decrypt(keys, ra, rb).numpy(), va < vb)
 

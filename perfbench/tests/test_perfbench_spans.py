@@ -129,7 +129,7 @@ def test_new_readers_find_nothing(case):
 
 
 def test_existing_readers_ignore_the_spans():
-    """The seven readers of the accepted benchmark read the same with the
+    """The seven readers that read no span read the same with the
     program's spans in the trace as without; only the names of idle gaps
     may change."""
     with_spans, without = run_of(window()), run_of(window(with_spans=False))

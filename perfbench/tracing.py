@@ -64,8 +64,9 @@ def category(name: str, cat: str) -> str:
 def traced(device: torch.device, out: dict):
     """Trace the body (the measured window, which the caller marks with a
     ``record_function(WINDOW)`` span) between the guards; on exit ``out``
-    holds ``summarize`` of the trace. The trace file is written to a
-    temporary directory and deleted once read."""
+    holds ``summarize`` of the trace and, under ``spans``, the program's
+    spans (spans.summarize). The trace file is written to a temporary
+    directory and deleted once read."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     word = torch.zeros(1, dtype=torch.int32, device=device)
@@ -86,8 +87,12 @@ def traced(device: torch.device, out: dict):
         prof.export_chrome_trace(path)
         with gzip.open(path, "rt") as fh:
             data = json.load(fh)
+    from . import spans
+
     events = data.get("traceEvents", []) if isinstance(data, dict) else data
-    out.update(summarize([ev for ev in events if ev.get("ph") == "X"]))
+    complete = [ev for ev in events if ev.get("ph") == "X"]
+    out.update(summarize(complete))
+    out["spans"] = spans.summarize(complete)
 
 
 def _span(ev) -> tuple:

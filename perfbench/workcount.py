@@ -19,6 +19,11 @@ happens to use; a later kernel is held against the same work.
   (n_in t (2^lb - 1) rows), the extracted sample in (n_in + 1 words) and
   the switched one out (parties n + 1 words).
 
+It counts the key forms that hold a 32-bit word a key coefficient: the
+single-key set, and the 3gen set at digits that allow the hi-word key (l lb
+<= 31, lb <= 8). Of any other configuration (the exact 64-bit 3gen chain,
+another scheme) it counts nothing and returns None.
+
 The bound of a launch is the larger of operations over the int8 peak and
 bytes over the memory rate of an H100 SXM (NVIDIA's data sheet, dense,
 at the full 700 W power limit).
@@ -46,26 +51,39 @@ class Work(NamedTuple):
         return "operations" if self.ops / INT8_OPS_PER_S >= self.nbytes / BYTES_PER_S else "bytes"
 
 
-def _shape(cfg: dict) -> tuple:
-    """(steps, l, C, N, parties) of a configuration."""
+def _shape(cfg: dict):
+    """(steps, l, C, N, parties) of a configuration the count reads, else
+    None."""
     p, parties = cfg["params"], cfg["parties"]
-    l = p["bs_decomp_length"] if cfg["scheme"] == "single" else p["gsw_decomp_length"]
+    if cfg["scheme"] == "single":
+        l = p["bs_decomp_length"]
+    elif (cfg["scheme"] == "3gen" and p["gsw_decomp_length"] * p["gsw_log2_base"] <= 31
+          and p["gsw_log2_base"] <= 8):
+        l = p["gsw_decomp_length"]
+    else:
+        return None
     return parties * p["lwe_size"], l, p["rlwe_mask_size"] + 1, p["rlwe_polynomial_degree"], parties
 
 
-def rotate(cfg: dict, batch: int) -> Work:
-    """One blind rotate of ``batch`` gates."""
-    steps, l, C, N, _ = _shape(cfg)
+def rotate(cfg: dict, batch: int):
+    """One blind rotate of ``batch`` gates, or None."""
+    shape = _shape(cfg)
+    if shape is None:
+        return None
+    steps, l, C, N, _ = shape
     R = l * C
     macs = steps * batch * (R * N) * (C * N * LIMBS)
     key = steps * R * C * N * WORD
     return Work(2.0 * macs, float(key + batch * steps * WORD + 2 * batch * C * N * WORD))
 
 
-def keyswitch(cfg: dict, batch: int) -> Work:
-    """One keyswitch of ``batch`` gates."""
+def keyswitch(cfg: dict, batch: int):
+    """One keyswitch of ``batch`` gates, or None."""
+    shape = _shape(cfg)
+    if shape is None:
+        return None
     p = cfg["params"]
-    _, _, C, N, parties = _shape(cfg)
+    _, _, C, N, parties = shape
     n_in = (C - 1) * N
     t, base = p["ks_decomp_length"], 1 << p["ks_log2_base"]
     row = parties * (p["lwe_size"] + 1)
